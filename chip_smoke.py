@@ -9,11 +9,17 @@ It imports only the port, builds its CUDA kernels from ``cubez_tpu_torch/
 csrc``, and raises (exit code != 0, no result line) on any failure:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the kernels and prints the build time;
-3. holds every kernel against its plain PyTorch twin on the card at 128^3,
-   124^3 and a ragged (37, 22, 45) (K, I, J): the single sweep with zero and
-   seeded b, the pair with b, n = 3, 4, 6, offsets 0 and 1; float32 fields
-   bitwise equal, float64 within 1e-14, residuals to rtol 1e-5;
+2. builds the kernels (one nvcc per source, in parallel) and prints the
+   build time;
+3. holds every kernel against its plain PyTorch twin on the card, float32
+   fields bitwise equal, float64 within 1e-14, residuals to rtol 1e-5:
+   - the constant-coefficient packed steps at 128^3, 124^3 and a ragged
+     (37, 22, 45) (K, I, J): the single sweep with zero and seeded b, the
+     pair with b, n = 3, 4, 6, offsets 0 and 1;
+   - the MAF packed steps (single with and without b, pair with and
+     without b, n = 3 and 6) on stretched-grid coefficients, and K4
+     (jacobi and sor2sma, constant and MAF, with and without b) at 128^3,
+     125^3 (odd I: K4 only) and the ragged shape, offsets 0 and 1;
 4. the main path, ``solve(Problem.poisson_cube(128, device="cuda"),
    "sor2sma", omega=1.5, itr_max=10000)``, with the kernels' launch counts
    zeroed just before: 1777-1849 iterations (the f32 oracle's 1813 +-2%),
@@ -21,12 +27,28 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
    plain-twin solve on the card (1e-5);
 5. float64 at 128^3: the f64 oracle's count +-1%, history to rtol 1e-6;
 6. float32 at 512^3: within 2% of the f64 oracle's 5781 iterations;
-7. the CLI in a subprocess, ``124 124 124 sor2sma 10000 1.5``;
-8. times the kernel path and the plain path at 128^3 and 512^3 (CUDA
-   events, distinct random starts, long-minus-short differencing).
+7. the slice-2 paths at 128^3 f32, each with the counts zeroed just before
+   and read just after: sor2sma_maf (the packed MAF pair, its stopping
+   chunk replayed on the MAF single sweep; 1813 +-2%), jacobi and
+   jacobi_maf at omega 0.8 (K4; 5378 and 5377 +-2%), histories to rtol 1e-3
+   (the jacobi pair's against the oracle with float64 sums of dp^2,
+   tests/torch_ref_histories), Error max equal to a plain-twin solve's
+   (1e-5); then 60 fixed sweeps of the MAF window chain at n = 6 (K3-MAF),
+   which no solve dispatches;
+8. odd I: sor2sma and sor2sma_maf at 125^3 on K4's red-black form, the
+   plain twin's iteration count and field;
+9. float64 stretched grids (Problem.manufactured_stretched) at 24^3 and
+   48^3: sor2sma_maf (the MAF pair with b) and jacobi_maf (K4-MAF with b)
+   to eps 1e-9 on the kernels, error ratio in the h^2 band (3.4, 5.0);
+10. the CLI in subprocesses, ``124 124 124 sor2sma 10000 1.5``, ``... jacobi
+    10000 0.8`` and ``... sor2sma_maf 10000 1.5``;
+11. times each step and its plain twin at 128^3 and 512^3 (sor2sma on the
+    n = 6 chain, jacobi on K4, sor2sma_maf on the MAF pair, the MAF chain
+    at n = 6; CUDA events, distinct random starts, long-minus-short
+    differencing), and every kernel per call against its twin at 128^3.
 
-The line before the last is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel
+variant; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -42,8 +64,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HIST = ROOT / "tests" / "ref_histories"
+# the oracle with float64 dp^2 sums in jacobi/jacobi_maf (tools/ref_oracle_f64sum.py)
+HIST64 = ROOT / "tests" / "torch_ref_histories"
 OMEGA = 1.5
+OMEGA_J = 0.8
 SEED = 20261016
+RAGGED = (37, 22, 45)  # (K, I, J)
 
 
 def check(cond, msg):
@@ -51,8 +77,8 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def load_history(name):
-    rows = (HIST / name).read_text().splitlines()[1:]
+def load_history(name, where=HIST):
+    rows = (where / name).read_text().splitlines()[1:]
     return [float(r.split(",")[1]) for r in rows]
 
 
@@ -74,11 +100,32 @@ def main():
     from cubez_tpu_torch import Grid, Problem, max_error_loc, solve
     from cubez_tpu_torch.cuda_kernels import _build
     from cubez_tpu_torch.cuda_kernels import rbpack as rb
+    from cubez_tpu_torch.cuda_kernels import sweeps as k4
     from cubez_tpu_torch.solvers.driver import fixed_sweeps
     from cubez_tpu_torch.solvers.fused_cache import get_fused_step
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
+    f32, f64 = torch.float32, torch.float64
+    t_start = time.perf_counter()
+
+    # each wrapper counts its launches, and separately its MAF launches; a
+    # kernel variant is a wrapper's constant or MAF form
+    wrappers = {"rb_color": rb.rb_color, "rb_sweeps_n": rb.rb_sweeps_n,
+                "k4_jacobi": k4.jacobi_k4, "k4_rb_color": k4.sor2sma_k4}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = w.maf_launches = 0
+
+    def read_counts():
+        out = {}
+        for name, w in wrappers.items():
+            out[name] = w.launches - w.maf_launches
+            out[name + "_maf"] = w.maf_launches
+        return out
+
+    path_launches = {}  # variant -> launches in the path that runs it
 
     # ---- 1. the card ------------------------------------------------------
     card = card_line()
@@ -88,7 +135,8 @@ def main():
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     _build.load(rebuild=True)
-    print(f"build: {time.perf_counter() - t0:.2f} s "
+    print(f"build: {time.perf_counter() - t0:.2f} s, "
+          f"{len(_build.sources())} sources in parallel "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "spill" in ln:
@@ -100,62 +148,100 @@ def main():
     def rand(shape, dtype):
         return (torch.rand(shape, generator=gen, dtype=torch.float64) * 2 - 1).to(dtype)
 
-    err = {"rb_color": 0.0, "rb_sweeps_n": 0.0}
+    def stretched_mc(shape, dtype):
+        K, I, J = shape
+        return Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                              device=dev)[0].mc
+
+    # (label, variant, shapes it runs at, build(shape, dtype, offset, mc, plain))
+    def packed(make, **kw):
+        return lambda sh, dt, off, mc, pl: make(sh, dt, omega=OMEGA, offset=off,
+                                                mc=mc, plain=pl, **kw)
+
+    def unpacked(kind, bz):
+        return lambda sh, dt, off, mc, pl: k4.make_fused_sweep(
+            kind, sh, dt, omega=OMEGA if kind == "sor2sma" else OMEGA_J,
+            offset=off, b_is_zero=bz, mc=mc, plain=pl)
+
+    const_shapes = ((128, 128, 128), (124, 124, 124), RAGGED)
+    new_shapes = ((128, 128, 128), (125, 125, 125), RAGGED)
     cases = [
-        ("single b=0", "rb_color",
-         lambda sh, dt, off, pl: rb.make_packed_sweep(
-             sh, dt, omega=OMEGA, offset=off, b_is_zero=True, plain=pl)),
-        ("single b", "rb_color",
-         lambda sh, dt, off, pl: rb.make_packed_sweep(
-             sh, dt, omega=OMEGA, offset=off, b_is_zero=False, plain=pl)),
-        ("pair b", "rb_sweeps_n",
-         lambda sh, dt, off, pl: rb.make_packed_sweep2x(
-             sh, dt, omega=OMEGA, offset=off, b_is_zero=False, plain=pl)),
+        ("single b=0", "rb_color", const_shapes, False,
+         packed(rb.make_packed_sweep, b_is_zero=True)),
+        ("single b", "rb_color", const_shapes, False,
+         packed(rb.make_packed_sweep, b_is_zero=False)),
+        ("pair b", "rb_sweeps_n", const_shapes, False,
+         packed(rb.make_packed_sweep2x, b_is_zero=False)),
     ] + [
-        (f"n={n}", "rb_sweeps_n",
-         lambda sh, dt, off, pl, n=n: rb.make_packed_sweepnx(
-             sh, dt, omega=OMEGA, n=n, offset=off, plain=pl))
+        (f"n={n}", "rb_sweeps_n", const_shapes, False,
+         packed(rb.make_packed_sweepnx, n=n))
         for n in (3, 4, 6)
+    ] + [
+        ("MAF single b=0", "rb_color_maf", new_shapes, True,
+         packed(rb.make_packed_sweep, b_is_zero=True)),
+        ("MAF single b", "rb_color_maf", new_shapes, True,
+         packed(rb.make_packed_sweep, b_is_zero=False)),
+        ("MAF pair b=0", "rb_sweeps_n_maf", new_shapes, True,
+         packed(rb.make_packed_sweep2x, b_is_zero=True)),
+        ("MAF pair b", "rb_sweeps_n_maf", new_shapes, True,
+         packed(rb.make_packed_sweep2x, b_is_zero=False)),
+    ] + [
+        (f"MAF n={n}", "rb_sweeps_n_maf_chain", new_shapes, True,
+         packed(rb.make_packed_sweepnx, n=n))
+        for n in (3, 6)
+    ] + [
+        (f"K4 {kind}{' MAF' if maf else ''} b={'0' if bz else 'b'}",
+         f"k4_{'jacobi' if kind == 'jacobi' else 'rb_color'}"
+         f"{'_maf' if maf else ''}", new_shapes, maf, unpacked(kind, bz))
+        for kind in k4.KINDS for maf in (False, True) for bz in (True, False)
     ]
+    err = {}
     n_cmp = 0
-    for shape in ((128, 128, 128), (124, 124, 124), (37, 22, 45)):
-        for dtype in (torch.float32, torch.float64):
-            tol = 0.0 if dtype == torch.float32 else 1e-14
+    for shape in ((128, 128, 128), (124, 124, 124), (125, 125, 125), RAGGED):
+        for dtype in (f32, f64):
+            tol = 0.0 if dtype == f32 else 1e-14
+            mc = None
+            if shape in new_shapes:
+                mc = stretched_mc(shape, dtype)
+            x, b = rand(shape, dtype).to(dev), rand(shape, dtype).to(dev)
             for offset in (0, 1):
-                x0 = rb.pack_rb(rand(shape, dtype), offset).to(dev)
-                b0 = rb.pack_rb(rand(shape, dtype), offset).to(dev)
-                for label, kern, build in cases:
-                    ks = build(shape, dtype, offset, False)
-                    ps = build(shape, dtype, offset, True)
+                for label, variant, shapes, maf, build in cases:
+                    if shape not in shapes:
+                        continue
+                    ks = build(shape, dtype, offset, mc if maf else None, False)
+                    ps = build(shape, dtype, offset, mc if maf else None, True)
+                    if ks is None:  # odd I: no packed layout
+                        continue
+                    x0, b0 = ks.pad(x), ks.pad(b)
                     xk, xp = x0.clone(), x0.clone()
                     for _ in range(2):
                         xk, rk = ks(xk, b0)
                         xp, rp = ps(xp, b0)
                     sync()
                     e = float((xk - xp).abs().max())
-                    err[kern] = max(err[kern], e)
+                    err[variant] = max(err.get(variant, 0.0), e)
                     rel = float(((rk - rp).abs() / rp.abs()).max())
                     where = f"{label} {shape} {dtype} offset={offset}"
                     check(torch.isfinite(xk).all(), f"non-finite field: {where}")
                     check(e <= tol, f"field differs by {e}: {where}")
                     check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
                     n_cmp += 1
-    print(f"kernels vs plain twins: {n_cmp} comparisons passed; "
-          f"max |field diff| rb_color {err['rb_color']:.3e}, "
-          f"rb_sweeps_n {err['rb_sweeps_n']:.3e} (f32 bitwise, f64 <= 1e-14)",
+    print(f"kernels vs plain twins: {n_cmp} comparisons passed "
+          f"(f32 bitwise, f64 <= 1e-14); max |field diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(err.items())),
           flush=True)
 
     # ---- 4. the main path ------------------------------------------------------
     prob = Problem.poisson_cube(128, dtype=torch.float32, device="cuda")
     sync()
-    rb.rb_color.launches = 0
-    rb.rb_sweeps_n.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     res = solve(prob, "sor2sma", omega=OMEGA, itr_max=10000)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"rb_color": rb.rb_color.launches,
-                "rb_sweeps_n": rb.rb_sweeps_n.launches}
+    counts = read_counts()
+    launches = {k: counts[k] for k in ("rb_color", "rb_sweeps_n")}
+    path_launches.update(launches)
     ref = load_history("f32_sor2sma_128_w1.5.txt")
     check(res.x.shape == (128, 128, 128) and bool(torch.isfinite(res.x).all()),
           "main path: field of the wrong shape or not finite")
@@ -204,28 +290,138 @@ def main():
           f"res {res512.res:e}, wall {wall512:.3f} s {tag}", flush=True)
     del prob512, res512
 
-    # ---- 7. the CLI ------------------------------------------------------------
+    # ---- 7. the slice-2 paths at 128^3 f32 -------------------------------------
+    def drive(name, omega, n, variants, itr_max=10000, **kw):
+        """Solve with the counts zeroed just before and read just after;
+        every kernel variant of the path must have launched."""
+        p = Problem.poisson_cube(n, dtype=torch.float32, device="cuda",
+                                 maf=name.endswith("_maf"))
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        r = solve(p, name, omega=omega, itr_max=itr_max, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        for v in variants:
+            check(counts[v] > 0, f"{name} {n}: {v} was not launched")
+            path_launches[v] = counts[v]
+        check(bool(torch.isfinite(r.x).all()), f"{name} {n}: field not finite")
+        rp = solve(p, name, omega=omega, itr_max=itr_max, impl="plain", **kw)
+        check(rp.iters == r.iters,
+              f"{name} {n}: {r.iters} iterations, plain twin {rp.iters}")
+        return p, r, rp, wall, {v: counts[v] for v in variants}
+
+    # The f32 oracle's jacobi and jacobi_maf sum dp^2 serially in float32
+    # over all 2M points (res1 is REAL, cz_solver.f90:284-387), which moves
+    # their curves by rtol 1.52e-3 at 128^3; K4 folds float32 row sums in
+    # float64.  Their counts are held to the f32 oracle's, their curves to
+    # the same oracle with float64 sums (HIST64); sor2sma_maf's, whose
+    # oracle sums per colour, to the f32 oracle's.
+    for name, omega, oracle, variants, curve in (
+        ("sor2sma_maf", OMEGA, "f32_sor2sma_maf_128_w1.5.txt",
+         ("rb_sweeps_n_maf", "rb_color_maf"), None),
+        ("jacobi", OMEGA_J, "f32_jacobi_128_w0.8.txt", ("k4_jacobi",),
+         "f32_jacobi_128_w0.8_f64sum.txt"),
+        ("jacobi_maf", OMEGA_J, "f32_jacobi_maf_128_w0.8.txt",
+         ("k4_jacobi_maf",), "f32_jacobi_maf_128_w0.8_f64sum.txt"),
+    ):
+        p, r, rp, wall, cnt = drive(name, omega, 128, variants)
+        ref = load_history(oracle)
+        check(abs(r.iters - len(ref)) <= len(ref) * 2 // 100,
+              f"{name} 128^3: {r.iters} iterations vs the oracle's {len(ref)}")
+        if curve is not None:
+            ref = load_history(curve, HIST64)
+        m = min(r.iters, len(ref)) - 1
+        h = r.history.cpu().tolist()
+        worst = max(abs(a / b - 1) for a, b in zip(h[:m], ref[:m]))
+        check(worst <= 1e-3, f"{name} 128^3: history rtol {worst}")
+        ek, lk = max_error_loc(p.grid, r.x)
+        ep, lp = max_error_loc(p.grid, rp.x)
+        check(abs(ek - ep) <= 1e-5, f"{name}: Error max {ek} vs plain {ep}")
+        print(f"{name} 128^3 f32 omega {omega}: {r.iters} iterations (f32 "
+              f"oracle {len(load_history(oracle))}), res {r.res:e}, history "
+              f"rtol {worst:.2e} (vs {curve or oracle}), "
+              f"wall {wall:.3f} s, launches {cnt}, Error max {ek:e} at {lk} "
+              f"(plain twin: {ep:e} at {lp}) {tag}", flush=True)
+
+    # The MAF window chain (K3-MAF) is not on the dispatch, as in the JAX
+    # package: drive its builder through fixed sweeps, counts zeroed first.
+    p = Problem.poisson_cube(128, dtype=torch.float32, device="cuda", maf=True)
+    chain = rb.make_packed_sweepnx(p.grid.shape_kij, f32, omega=OMEGA, n=6,
+                                   mc=p.mc)
+    sync()
+    zero_counts()
+    xc = chain.unpad(fixed_sweeps(chain, chain.pad(p.x0), None, 60))
+    sync()
+    path_launches["rb_sweeps_n_maf_chain"] = read_counts()["rb_sweeps_n_maf"]
+    check(path_launches["rb_sweeps_n_maf_chain"] == 10,
+          f"MAF chain: {path_launches['rb_sweeps_n_maf_chain']} launches")
+    check(bool(torch.isfinite(xc).all()), "MAF chain: field not finite")
+    print(f"MAF chain n=6 128^3 f32: 60 fixed sweeps in "
+          f"{path_launches['rb_sweeps_n_maf_chain']} launches {tag}", flush=True)
+    del p, chain, xc
+
+    # ---- 8. odd I on K4 ----------------------------------------------------------
+    for name, variant in (("sor2sma", "k4_rb_color"),
+                          ("sor2sma_maf", "k4_rb_color_maf")):
+        p, r, rp, wall, cnt = drive(name, OMEGA, 125, (variant,))
+        check(torch.equal(r.x, rp.x), f"{name} 125^3: field != plain twin's")
+        print(f"{name} 125^3 f32 (odd I, K4): {r.iters} iterations, res "
+              f"{r.res:e}, wall {wall:.3f} s, launches {cnt}, field bitwise "
+              f"equal to the plain twin's {tag}", flush=True)
+
+    # ---- 9. stretched grids, float64 ------------------------------------------
+    for name, omega, variant in (("sor2sma_maf", OMEGA, "rb_sweeps_n_maf"),
+                                 ("jacobi_maf", OMEGA_J, "k4_jacobi_maf")):
+        errs, its = {}, {}
+        for n in (24, 48):
+            p, u = Problem.manufactured_stretched(n, dtype=torch.float64,
+                                                  device=dev)
+            zero_counts()
+            r = solve(p, name, omega=omega, itr_max=40000, eps=1e-9)
+            sync()
+            check(read_counts()[variant] > 0, f"stretched {name}: {variant} idle")
+            check(r.res < 1e-8, f"stretched {name} {n}: res {r.res}")
+            errs[n] = float(((r.x - u).abs() * p.msk).max())
+            its[n] = r.iters
+        ratio = errs[24] / errs[48]
+        check(3.4 < ratio < 5.0, f"stretched {name}: h^2 ratio {ratio}")
+        print(f"stretched f64 {name}: err 24^3 {errs[24]:.4e} ({its[24]} it), "
+              f"48^3 {errs[48]:.4e} ({its[48]} it), ratio {ratio:.3f} "
+              f"(h^2 band 3.4-5.0)", flush=True)
+
+    # ---- 10. the CLI -------------------------------------------------------------
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p]
     )
+    runs = (("sor2sma", "1.5"), ("jacobi", "0.8"), ("sor2sma_maf", "1.5"))
     with tempfile.TemporaryDirectory() as tmp:
-        cli = subprocess.run(
-            [sys.executable, "-m", "cubez_tpu_torch.cli", "124", "124", "124",
-             "sor2sma", "10000", "1.5"],
-            cwd=tmp, env=env, capture_output=True, text=True, timeout=300,
-        )
-        check(cli.returncode == 0, f"CLI exited {cli.returncode}:\n{cli.stderr}")
-        hist_file = Path(tmp) / "sor2sma.txt"
-        check(hist_file.exists(), "CLI wrote no sor2sma.txt")
-        check(hist_file.read_text().startswith("Itration      Residual\n"),
-              "CLI history header")
-        check("Error max" in cli.stdout, "CLI printed no Error max")
-    for ln in cli.stdout.splitlines():
-        if ln.startswith(("Iter =", "wall =", "Error max")):
-            print(f"CLI 124^3: {ln.strip()}")
+        procs = []
+        for solver, omega in runs:
+            d = Path(tmp) / solver
+            d.mkdir()
+            procs.append((solver, d, subprocess.Popen(
+                [sys.executable, "-m", "cubez_tpu_torch.cli", "124", "124",
+                 "124", solver, "10000", omega],
+                cwd=d, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True,
+            )))
+        for solver, d, proc in procs:
+            out, errs_ = proc.communicate(timeout=300)
+            check(proc.returncode == 0,
+                  f"CLI {solver} exited {proc.returncode}:\n{errs_}")
+            hist_file = d / f"{solver}.txt"
+            check(hist_file.exists(), f"CLI wrote no {solver}.txt")
+            check(hist_file.read_text().startswith("Itration      Residual\n"),
+                  f"CLI {solver} history header")
+            check("Error max" in out, f"CLI {solver} printed no Error max")
+            for ln in out.splitlines():
+                if ln.startswith(("Iter =", "wall =", "Error max")):
+                    print(f"CLI 124^3 {solver}: {ln.strip()}")
 
-    # ---- 8. timing ------------------------------------------------------------
+    # ---- 11. timing ------------------------------------------------------------
     def events_ms(fn, reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -240,7 +436,7 @@ def main():
 
     def per_iter_ms(step, shape, short, long, reps=3):
         """Long-minus-short ms per iteration over distinct random starts."""
-        starts = [rb.pack_rb(torch.rand(shape, device=dev, generator=dgen))
+        starts = [step.pad(torch.rand(shape, device=dev, generator=dgen))
                   for _ in range(reps + 1)]
         fixed_sweeps(step, starts[-1], None, short)  # warm-up
         med = {}
@@ -252,30 +448,72 @@ def main():
             med.setdefault(count, []).append(statistics.median(ts))
         return (min(med[long]) - min(med[short])) / (long - short)
 
+    # (label, solver kind, MAF, n of the packed chain or None for the
+    # dispatch, {size: ((kernel short, long), (plain short, long, reps))})
+    timed = (
+        ("sor2sma", "sor2sma", False, None,
+         {128: ((60, 600), (6, 36, 3)), 512: ((12, 72), (6, 18, 3))}),
+        ("jacobi (K4)", "jacobi", False, None,
+         {128: ((60, 600), (6, 36, 3)), 512: ((12, 72), (4, 12, 1))}),
+        ("sor2sma_maf (MAF pair)", "sor2sma", True, None,
+         {128: ((60, 600), (4, 16, 3)), 512: ((12, 72), (2, 6, 1))}),
+        ("MAF chain n=6 (K3-MAF)", "sor2sma", True, 6,
+         {128: ((60, 600), (6, 18, 3)), 512: ((12, 72), (6, 12, 1))}),
+    )
     timing = {}
-    for n, (ks, kl), (ps, pl) in ((128, (60, 600), (6, 36)),
-                                  (512, (12, 72), (6, 18))):
-        g = Grid(n, n, n, torch.float32, dev)
-        for impl, (short, long) in (("kernel", (ks, kl)), ("plain", (ps, pl))):
-            step = get_fused_step("sor2sma", g, OMEGA, plain=impl == "plain",
-                                  b_is_zero=True)
-            ms = per_iter_ms(step, g.shape_kij, short, long)
-            check(ms > 0, f"timing {impl} {n}^3: non-positive difference")
-            timing[(impl, n)] = ms
-            print(f"timing sor2sma {n}^3 f32 {impl} path (n={step.iters_per_call}"
-                  f" per call): {ms * 1e3:.3f} us/iteration, "
-                  f"{g.num_inner / (ms * 1e-3) / 1e6:.1f} Mcell-updates/s {tag}",
-                  flush=True)
-        del g
+    for n in (128, 512):
+        g = Grid(n, n, n, f32, dev)
+        mc = Problem.poisson_cube(n, device=dev, maf=True).mc
+        for label, kind, maf, nx, sizes in timed:
+            (ks, kl), (ps, pl, preps) = sizes[n]
+            for impl in ("kernel", "plain"):
+                plain = impl == "plain"
+                if nx is None:
+                    step = get_fused_step(kind, g, OMEGA_J if kind == "jacobi"
+                                          else OMEGA, mc=mc if maf else None,
+                                          plain=plain, b_is_zero=True)
+                else:
+                    step = rb.make_packed_sweepnx(g.shape_kij, f32, omega=OMEGA,
+                                                  n=nx, mc=mc, plain=plain)
+                short, long, reps = (ks, kl, 3) if not plain else (ps, pl, preps)
+                ms = per_iter_ms(step, g.shape_kij, short, long, reps)
+                check(ms > 0, f"timing {label} {impl} {n}^3: non-positive")
+                timing[(label, impl, n)] = ms
+                print(f"timing {label} {n}^3 f32 {impl} (n="
+                      f"{step.iters_per_call} per call): {ms * 1e3:.3f} "
+                      f"us/iteration, {g.num_inner / (ms * 1e-3) / 1e6:.1f} "
+                      f"Mcell-updates/s {tag}", flush=True)
+        del g, mc
 
     # per-call kernel times at the main path's shape (128^3 f32), each
     # against its plain twin, in turns: plain, kernel, kernel, plain
-    xs = rb.pack_rb(rand((128, 128, 128), torch.float32)).to(dev)
+    sh = (128, 128, 128)
+    xs = rb.pack_rb(rand(sh, f32)).to(dev)
+    bs = rb.pack_rb(rand(sh, f32)).to(dev)
+    xu = rand(sh, f32).to(dev)
+    tab = rb.maf_tables(Problem.poisson_cube(128, device=dev, maf=True).mc,
+                        sh, f32)
     calls = {
         "rb_color": (lambda: rb.rb_color(xs, None, 0, OMEGA),
                      lambda: rb.rb_color_plain(xs, None, 0, OMEGA)),
+        "rb_color_maf": (lambda: rb.rb_color(xs, None, 0, OMEGA, tab=tab),
+                         lambda: rb.rb_color_plain(xs, None, 0, OMEGA, tab=tab)),
         "rb_sweeps_n": (lambda: rb.rb_sweeps_n(xs, None, 6, OMEGA),
                         lambda: rb.packed_sweeps_plain(xs, None, 6, OMEGA)),
+        "rb_sweeps_n_maf": (
+            lambda: rb.rb_sweeps_n(xs, bs, 2, OMEGA, tab=tab),
+            lambda: rb.packed_sweeps_plain(xs, bs, 2, OMEGA, tab=tab)),
+        "rb_sweeps_n_maf_chain": (
+            lambda: rb.rb_sweeps_n(xs, None, 6, OMEGA, tab=tab),
+            lambda: rb.packed_sweeps_plain(xs, None, 6, OMEGA, tab=tab)),
+        "k4_jacobi": (lambda: k4.jacobi_k4(xu, None, OMEGA_J),
+                      lambda: k4.jacobi_plain(xu, None, OMEGA_J)),
+        "k4_jacobi_maf": (lambda: k4.jacobi_k4(xu, None, OMEGA_J, tab),
+                          lambda: k4.jacobi_plain(xu, None, OMEGA_J, tab)),
+        "k4_rb_color": (lambda: k4.sor2sma_k4(xu, None, OMEGA),
+                        lambda: k4.sor2sma_plain(xu, None, OMEGA)),
+        "k4_rb_color_maf": (lambda: k4.sor2sma_k4(xu, None, OMEGA, tab=tab),
+                            lambda: k4.sor2sma_plain(xu, None, OMEGA, tab=tab)),
     }
     per_call = {}
     for name, (kfn, pfn) in calls.items():
@@ -288,18 +526,34 @@ def main():
         per_call[name] = (min(k1, k2), min(p1, p2))
         print(f"per call at 128^3 f32: {name} {per_call[name][0]:.4f} ms, "
               f"plain twin {per_call[name][1]:.4f} ms {tag}")
-    check(bool(torch.isfinite(xs).all()), "timing field not finite")
+    check(bool(torch.isfinite(xs).all() and torch.isfinite(xu).all()),
+          "timing fields not finite")
 
-    source = "cubez_tpu_torch/csrc/rbpack.cu"
-    replaces = {"rb_color": "cubez_tpu/pallas_kernels/rbpack.py:732",
-                "rb_sweeps_n": "cubez_tpu/pallas_kernels/sweeps2x.py:480"}
+    rbpack_cu = "cubez_tpu_torch/csrc/rbpack.cu"
+    sweeps_cu = "cubez_tpu_torch/csrc/sweeps.cu"
+    k4_site = "cubez_tpu/pallas_kernels/sweeps.py:416"
+    meta = {
+        "rb_color": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
+        "rb_color_maf": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
+        "rb_sweeps_n": (rbpack_cu, "cubez_tpu/pallas_kernels/sweeps2x.py:480"),
+        "rb_sweeps_n_maf": (rbpack_cu,
+                            "cubez_tpu/pallas_kernels/sweeps2x.py:552"),
+        "rb_sweeps_n_maf_chain": (rbpack_cu,
+                                  "cubez_tpu/pallas_kernels/sweeps2x.py:480"),
+        "k4_jacobi": (sweeps_cu, k4_site),
+        "k4_jacobi_maf": (sweeps_cu, k4_site),
+        "k4_rb_color": (sweeps_cu, k4_site),
+        "k4_rb_color_maf": (sweeps_cu, k4_site),
+    }
+    for name in meta:
+        check(path_launches.get(name, 0) > 0, f"{name}: no path launched it")
     kernels = [
-        {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": err[name], "ms": per_call[name][0],
-         "plain_ms": per_call[name][1]}
-        for name in ("rb_color", "rb_sweeps_n")
+        {"name": name, "route": "cuda", "source": src, "replaces": site,
+         "launches": path_launches[name], "max_abs_err": err[name],
+         "ms": per_call[name][0], "plain_ms": per_call[name][1]}
+        for name, (src, site) in meta.items()
     ]
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,11 +83,12 @@ def main(argv=None):
     if rest:
         print(f"unexpected trailing args: {rest}", file=sys.stderr)
         return 2
-    require_ported(args.solver)  # validate early
+    _, is_maf = require_ported(args.solver)  # validate early
 
     gx, gy, gz = args.gsz
     dtype = torch.float64 if args.fp64 else torch.float32
-    prob = Problem.poisson_cube((gx, gy, gz), dtype=dtype, device=args.device)
+    prob = Problem.poisson_cube((gx, gy, gz), dtype=dtype, device=args.device,
+                                maf=is_maf)
     print(f"Iterative Method = {args.solver}")
 
     def sync():

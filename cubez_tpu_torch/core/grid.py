@@ -8,7 +8,10 @@ Conventions are the reference's and the JAX package's:
 * array layout ``(K, I, J)``: K major, J contiguous (the reference is KIJ
   too, cz_solver.f90:218);
 * no ghost cells on one device: the outermost node shell is the Dirichlet
-  data, the inner (updated) region is ``[1, n-2]`` per axis.
+  data, the inner (updated) region is ``[1, n-2]`` per axis;
+* optional custom node coordinates (stretched grids), from which the MAF
+  coefficients derive; ``bc_field``, ``exact`` and ``max_error`` stay the
+  uniform cube's analytic problem.
 
 The analytic fields are computed in numpy float64 exactly as the JAX
 package computes them and cast once, so they are bitwise equal to it.
@@ -33,6 +36,9 @@ class Grid:
       dtype: field dtype (``torch.float32``, the reference's REAL_TYPE, or
         ``torch.float64`` for ``-D_REAL_IS_DOUBLE_`` parity).
       device: where every field this grid makes lives.
+      coords_i, coords_j, coords_k: custom node coordinates as tuples of
+        floats (tuples keep the dataclass hashable), or None for the
+        uniform ``i * pitch`` nodes.
     """
 
     ni: int
@@ -40,6 +46,9 @@ class Grid:
     nk: int
     dtype: torch.dtype
     device: torch.device
+    coords_i: tuple | None = None
+    coords_j: tuple | None = None
+    coords_k: tuple | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
@@ -67,11 +76,27 @@ class Grid:
         return torch.as_tensor(a).to(device=self.device, dtype=self.dtype)
 
     def coords(self, axis: str) -> torch.Tensor:
-        """Node coordinates along 'i' | 'j' | 'k', shape (n,), computed in
-        the field dtype like the JAX package's ``arange * pitch``."""
+        """Node coordinates along 'i' | 'j' | 'k', shape (n,): the custom
+        ones rounded to the field dtype, else computed in it like the JAX
+        package's ``arange * pitch``."""
+        custom = {"i": self.coords_i, "j": self.coords_j, "k": self.coords_k}[axis]
+        if custom is not None:
+            return torch.tensor(custom, dtype=self.dtype, device=self.device)
         n = {"i": self.ni, "j": self.nj, "k": self.nk}[axis]
         pitch = torch.tensor(self.pitch, dtype=self.dtype)
         return (torch.arange(n, dtype=self.dtype) * pitch).to(self.device)
+
+    @cached_property
+    def xc(self) -> torch.Tensor:
+        return self.coords("i")
+
+    @cached_property
+    def yc(self) -> torch.Tensor:
+        return self.coords("j")
+
+    @cached_property
+    def zc(self) -> torch.Tensor:
+        return self.coords("k")
 
     @cached_property
     def inner_mask(self) -> torch.Tensor:
@@ -97,6 +122,11 @@ class Grid:
         f[:, :, 0] = 0.0
         f[:, :, -1] = 0.0
         return self._tensor(f)
+
+    def apply_bc(self, p: torch.Tensor) -> torch.Tensor:
+        """Re-impose the Dirichlet data on the boundary shell (the bc_k_
+        call sites, e.g. cz_Poisson.cpp:74)."""
+        return torch.where(self.inner_mask > 0, p, self.bc_field)
 
     @cached_property
     def exact(self) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/rbpack.cu`` has a plain C interface.  It is compiled with ``nvcc``
-for sm_90a into a shared library at first use and loaded with ctypes; the
+Every ``csrc/*.cu`` has a plain C interface.  At first use each is compiled
+with ``nvcc`` for sm_90a, all at once in parallel processes, and the
+objects are linked into one shared library, loaded with ctypes.  The
 library lands in ``cubez_tpu_torch/_build/`` under a name keyed by the hash
-of the source and the flags, so an edit rebuilds and an unchanged source is
-reused.  A missing ``nvcc`` or a failed build raises: there is no other way
-to run a kernel.
+of every source and header and the flags, so an edit rebuilds and an
+unchanged tree is reused.  A missing ``nvcc`` or a failed build raises:
+there is no other way to run a kernel.
 """
 
 from __future__ import annotations
@@ -19,17 +20,24 @@ import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "rbpack.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH,
     "-std=c++17", "-O3",
     # no contraction beyond the source's explicit fma: the fields must be
     # bitwise equal to the plain twin
     "--fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+
+
+def sources() -> list[Path]:
+    """The kernel sources, one object each."""
+    return sorted(CSRC.glob("*.cu"))
+
 
 _lock = threading.Lock()
 _lib = None
@@ -57,16 +65,35 @@ def _declare(lib):
     lib.cz_error_string.argtypes = [i32]
     lib.cz_error_string.restype = ctypes.c_char_p
     for t in ("f32", "f64"):
-        fn = getattr(lib, f"cz_rb_color_{t}")
-        fn.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, f64, u32, i32, vp]
-        fn.restype = i32
-        fn = getattr(lib, f"cz_rb_sweeps_max_blocks_{t}")
-        fn.argtypes = [i32, ctypes.POINTER(i32)]
-        fn.restype = i32
-        fn = getattr(lib, f"cz_rb_sweeps_n_{t}")
-        fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64, u32, i32,
-                       i32, vp]
-        fn.restype = i32
+        for name, args in (
+            # rbpack.cu
+            ("rb_color", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64, u32,
+                          i32, vp]),
+            ("rb_sweeps_max_blocks", [i32, i32, ctypes.POINTER(i32)]),
+            ("rb_sweeps_n", [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,
+                             u32, i32, i32, vp]),
+            # sweeps.cu
+            ("k4_jacobi", [vp, vp, vp, vp, vp, i32, i32, i32, f64, i32, vp]),
+            ("k4_rb_color", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64, i32,
+                             vp]),
+        ):
+            fn = getattr(lib, f"cz_{name}_{t}")
+            fn.argtypes = args
+            fn.restype = i32
+
+
+def _run(cmds):
+    """Run the commands in parallel; raise naming the first that failed.
+    Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{out}")
+    return "".join(outs)
 
 
 def load(rebuild: bool = False):
@@ -76,22 +103,25 @@ def load(rebuild: bool = False):
     with _lock:
         if _lib is not None:
             return _lib
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        so = BUILD_DIR / f"librbpack_{tag[:16]}.so"
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for f in sorted(CSRC.glob("*.cu*")):
+            h.update(f.name.encode() + b"\0" + f.read_bytes())
+        so = BUILD_DIR / f"libcz_{h.hexdigest()[:16]}.so"
         log = so.with_suffix(".log")
         if rebuild or not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                    f"{r.stdout}{r.stderr}"
-                )
-            log.write_text(r.stdout + r.stderr)
-            os.replace(tmp, so)  # atomic: concurrent builds race safely
+            tmp = f"{so.name}.{os.getpid()}"
+            nvcc = _nvcc()
+            objs = [BUILD_DIR / f"{tmp}.{src.stem}.o" for src in sources()]
+            out = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(sources(), objs)])
+            lib_tmp = BUILD_DIR / f"{tmp}.tmp"
+            out += _run([[nvcc, *ARCH, "-shared", "-o", str(lib_tmp),
+                          *map(str, objs)]])
+            for o in objs:
+                o.unlink()
+            log.write_text(out)
+            os.replace(lib_tmp, so)  # atomic: concurrent builds race safely
         build_log = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(so))
         _declare(lib)

@@ -17,11 +17,27 @@ Two kernels carry every builder (csrc/rbpack.cu):
   optional right-hand side (K2, the pair, is n = 2 with b; K3, the window
   chain, is n >= 3 without).
 
+Both take the MAF (variable-coefficient) update too: ``maf_tables`` gives
+the per-axis weight vectors, which the kernels index by the physical i of
+each packed point (the fold only mixes the I tables).
+
 Each wrapper launches its kernel for a CUDA tensor and raises on anything it
 cannot take; for a CPU tensor it runs the plain twin, ``rb_color_plain`` /
 ``packed_sweeps_plain``, which computes the same per-point arithmetic
-(bitwise equal in float32; see ``_fma_r6``).  Steps update the packed state
-in place and return it.
+(bitwise equal in float32; see ``_fma`` and the contracts below).  Steps
+update the packed state in place and return it.
+
+Arithmetic contracts (those of the JAX package's interpreted kernels, where
+XLA on the CPU contracts some products into fused multiply-adds):
+
+* constant coefficients: ``ss = ((zm + zp) + (xm + xp)) + (ym + yp)``,
+  ``ss -= b`` with a right-hand side, ``dp = fma(ss, 1/6, -centre) * omega``;
+* MAF: ``r = fma(wzm, zm, round(wzp * zp))``, then ``r = fma(w, n, r)`` for
+  (wxp, xp), (wxm, xm), (wyp, yp), (wym, ym) in that order, ``r += b`` with
+  a right-hand side, ``dd = 2 ((c1 + c2) + c3)``, and
+  ``dp = (r / dd - centre) * omega`` with a true division.
+
+Then ``centre += dp``.
 """
 
 from __future__ import annotations
@@ -32,12 +48,18 @@ import functools
 import numpy as np
 import torch
 
+from ..ops.maf import FIELDS
 from . import _build
 
 # 1/6 as the JAX kernels see it: the Python float rounded to float32 (for
 # float32 fields) or kept (for float64 fields)
 _R6 = {torch.float32: float(np.float32(1.0 / 6.0)), torch.float64: 1.0 / 6.0}
 _INF = float("inf")
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
+# the weight vectors of maf_tables, in their order; each is (K,), (I,) or
+# (J,) long, as its letter says
+TABLES = (("wzm", "k"), ("wzp", "k"), ("c3", "k"), ("wxp", "i"), ("wxm", "i"),
+          ("c1", "i"), ("wyp", "j"), ("wym", "j"), ("c2", "j"))
 
 
 def _red_even(K, J, offset, device):
@@ -73,21 +95,19 @@ def unpack_rb(p: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _fma_r6(ss: torch.Tensor, cen: torch.Tensor) -> torch.Tensor:
-    """``fma(ss, R6, -cen)`` rounded once, as the kernels compute it.
+def _fma(a, b, c):
+    """``a * b + c`` rounded once, as the kernels' ``fma`` computes it.
 
-    The JAX kernel in interpret mode contracts ``ss * R6 - centre`` into a
-    fused multiply-add, and the CUDA kernels use ``__fmaf_rn``.  For float32
-    the fma is emulated exactly in float64: the product of two float32
-    values is exact in float64, the sum is rounded to odd (TwoSum error,
-    then the odd neighbour when inexact), and rounding that to float32 gives
-    the single rounding of the exact value.  PyTorch has no fma, so float64
-    fields take a separate multiply and subtract: the CUDA float64 kernel
-    then differs by an ulp or so."""
-    if ss.dtype == torch.float64:
-        return ss * _R6[torch.float64] - cen
-    p = ss.double() * _R6[torch.float32]
-    c = -cen.double()
+    PyTorch has no fma.  For float32 it is emulated exactly in float64: the
+    product of two float32 values is exact in float64, the sum is rounded
+    to odd (TwoSum error, then the odd neighbour when inexact), and
+    rounding that to float32 gives the single rounding of the exact value.
+    float64 takes a separate multiply and add: the CUDA float64 kernels
+    then differ by an ulp or so."""
+    if torch.result_type(a, c) == torch.float64:
+        return a * b + c
+    p = a.double() * b.double()
+    c = c.double()
     s = p + c
     bb = s - p
     err = (p - (s - bb)) + (c - bb)
@@ -97,10 +117,65 @@ def _fma_r6(ss: torch.Tensor, cen: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
-def rb_color_plain(xp, bp, colour: int, omega: float, offset: int = 0):
+def maf_tables(mc, shape, dtype):
+    """The MAF weight vectors of ``TABLES``, concatenated into one 1-D
+    tensor of length 3 (K + I + J) on ``mc``'s device (None for ``mc``
+    None).  They are computed on the host in ``dtype`` (``wxp = c1 +
+    0.5 c7`` and so on), so they round as the JAX package's tables
+    (rbpack.py ``_maf_tables``) and its interpreted kernels do."""
+    if mc is None:
+        return None
+    if dtype not in _NP:
+        raise TypeError(f"MAF tables take float32 or float64, not {dtype}")
+    K, I, J = shape
+    dt = _NP[dtype]
+    c = {f: getattr(mc, f).reshape(-1).cpu().numpy().astype(dt)
+         for f in FIELDS}
+    for f, n in (("c1", I), ("c7", I), ("c2", J), ("c8", J), ("c3", K),
+                 ("c9", K)):
+        if c[f].shape != (n,):
+            raise ValueError(f"MafCoeffs.{f} has {c[f].shape[0]} entries, "
+                             f"the grid {n}")
+    half = dt(0.5)
+    w = {
+        "wzm": c["c3"] - half * c["c9"], "wzp": c["c3"] + half * c["c9"],
+        "c3": c["c3"],
+        "wxp": c["c1"] + half * c["c7"], "wxm": c["c1"] - half * c["c7"],
+        "c1": c["c1"],
+        "wyp": c["c2"] + half * c["c8"], "wym": c["c2"] - half * c["c8"],
+        "c2": c["c2"],
+    }
+    tab = np.concatenate([w[name] for name, _ in TABLES])
+    return torch.from_numpy(tab).to(mc.c1.device)
+
+
+def table_views(tab, shape) -> dict:
+    """name -> 1-D view of ``tab`` (see ``maf_tables``)."""
+    K, I, J = shape
+    n = {"k": K, "i": I, "j": J}
+    views, at = {}, 0
+    for name, axis in TABLES:
+        views[name] = tab[at:at + n[axis]]
+        at += n[axis]
+    return views
+
+
+def maf_r(w, nb):
+    """The MAF neighbour sum of the contract above, from the weights ``w``
+    and neighbour values ``nb`` (dicts keyed wzm/zm, wzp/zp, ...)."""
+    r = _fma(w["wzm"], nb["zm"], w["wzp"] * nb["zp"])
+    for a in ("xp", "xm", "yp", "ym"):
+        r = _fma(w["w" + a], nb[a], r)
+    return r
+
+
+def rb_color_plain(xp, bp, colour: int, omega: float, offset: int = 0,
+                   tab=None):
     """Plain PyTorch twin of ``rb_color``: update colour ``colour`` of the
     packed state ``xp`` in place; return its sum of dp^2 (float64, 0-d).
-    The sums of ``_pair_update`` (rbpack.py:132-146), in its order."""
+    ``tab`` (``maf_tables``) selects the MAF update.  The sums of
+    ``_pair_update`` / ``_pair_update_maf`` (rbpack.py:132-146, 176-187),
+    in their order."""
     _, K, I2, J = xp.shape
     cen = xp[colour, 1:-1, :, 1:-1]
     oth = xp[1 - colour]
@@ -112,14 +187,31 @@ def rb_color_plain(xp, bp, colour: int, omega: float, offset: int = 0):
     up[:, :-1] = oc[:, 1:]
     dn = torch.zeros_like(oc)
     dn[:, 1:] = oc[:, :-1]
-    ssk = oth[:-2, :, 1:-1] + oth[2:, :, 1:-1]
-    ssi = oc + torch.where(sel, up, dn)
-    ssj = oth[1:-1, :, :-2] + oth[1:-1, :, 2:]
-    ss = ssk + ssi + ssj
-    if bp is not None:
-        ss = ss - bp[colour, 1:-1, :, 1:-1]
+    b = None if bp is None else bp[colour, 1:-1, :, 1:-1]
     om = torch.tensor(omega, dtype=xp.dtype, device=xp.device)
-    upd = _fma_r6(ss, cen) * om
+    if tab is None:
+        ssk = oth[:-2, :, 1:-1] + oth[2:, :, 1:-1]
+        ssi = oc + torch.where(sel, up, dn)
+        ssj = oth[1:-1, :, :-2] + oth[1:-1, :, 2:]
+        ss = ssk + ssi + ssj
+        if b is not None:
+            ss = ss - b
+        r6 = torch.tensor(_R6[xp.dtype], dtype=xp.dtype, device=xp.device)
+        upd = _fma(ss, r6, -cen) * om
+    else:
+        t = table_views(tab, (K, 2 * I2, J))
+        i = 2 * torch.arange(I2, device=xp.device)[None, :, None] + sel.long()
+        w = {"wzm": t["wzm"][1:-1, None, None], "wzp": t["wzp"][1:-1, None, None],
+             "wxp": t["wxp"][i], "wxm": t["wxm"][i],
+             "wyp": t["wyp"][1:-1], "wym": t["wym"][1:-1]}
+        nb = {"zm": oth[:-2, :, 1:-1], "zp": oth[2:, :, 1:-1],
+              "xp": torch.where(sel, up, oc), "xm": torch.where(sel, oc, dn),
+              "yp": oth[1:-1, :, 2:], "ym": oth[1:-1, :, :-2]}
+        r = maf_r(w, nb)
+        if b is not None:
+            r = r + b
+        dd = 2.0 * ((t["c1"][i] + t["c2"][1:-1]) + t["c3"][1:-1, None, None])
+        upd = (r / dd - cen) * om
     i2 = torch.arange(I2, device=xp.device)[None, :, None]
     inner = ((i2 > 0) | sel) & ((i2 < I2 - 1) | ~sel)  # i in [1, I-2]
     dp = torch.where(inner, upd, 0.0)
@@ -127,13 +219,14 @@ def rb_color_plain(xp, bp, colour: int, omega: float, offset: int = 0):
     return (dp * dp).sum(dtype=torch.float64)
 
 
-def packed_sweeps_plain(xp, bp, n: int, omega: float, offset: int = 0):
+def packed_sweeps_plain(xp, bp, n: int, omega: float, offset: int = 0,
+                        tab=None):
     """Plain twin of ``rb_sweeps_n``: n red-black iterations in place;
     returns (xp, r2) with r2 the (n,) float64 per-iteration sums."""
     r2 = torch.empty(n, dtype=torch.float64, device=xp.device)
     for it in range(n):
-        r2[it] = rb_color_plain(xp, bp, 0, omega, offset) + rb_color_plain(
-            xp, bp, 1, omega, offset
+        r2[it] = rb_color_plain(xp, bp, 0, omega, offset, tab) + rb_color_plain(
+            xp, bp, 1, omega, offset, tab
         )
     return xp, r2
 
@@ -151,7 +244,18 @@ def _cells(xp):
     return max(K - 2, 0) * I2 * max(J - 2, 0)
 
 
-def _check(xp, bp):
+def check_tab(x, tab, shape):
+    """Raise unless ``tab`` fits the field ``x`` of (K, I, J) ``shape``."""
+    if tab is None:
+        return
+    n = 3 * sum(shape)
+    if (tab.dim() != 1 or tab.numel() != n or tab.dtype != x.dtype
+            or tab.device != x.device or not tab.is_contiguous()):
+        raise ValueError(f"MAF tables must be a contiguous ({n},) tensor of "
+                         "x's dtype on x's device (maf_tables)")
+
+
+def _check(xp, bp, tab=None):
     if not xp.is_cuda:
         raise ValueError("kernel launch needs a CUDA tensor")
     if xp.dtype not in _SUFFIX:
@@ -166,23 +270,32 @@ def _check(xp, bp):
         or bp.device != xp.device or not bp.is_contiguous()
     ):
         raise ValueError("b must match x in shape, dtype, device and layout")
+    _, K, I2, J = xp.shape
+    check_tab(xp, tab, (K, 2 * I2, J))
 
 
-def _ptr(t):
+def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _stream(xp):
-    return torch.cuda.current_stream(xp.device).cuda_stream
+def stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def rb_color(xp, bp, colour: int, omega: float, offset: int = 0):
+def count(fn, tab):
+    """One more launch of ``fn``'s kernel (and of its MAF form)."""
+    fn.launches += 1
+    fn.maf_launches += tab is not None
+
+
+def rb_color(xp, bp, colour: int, omega: float, offset: int = 0, tab=None):
     """Launch ``rb_color_kernel``: colour ``colour`` of one iteration, in
-    place.  Returns the float64 sum of dp^2 (0-d, on the device).  A CPU
-    tensor runs the plain twin."""
+    place; ``tab`` (``maf_tables``) selects the MAF form.  Returns the
+    float64 sum of dp^2 (0-d, on the device).  A CPU tensor runs the plain
+    twin."""
     if not xp.is_cuda:
-        return rb_color_plain(xp, bp, colour, omega, offset)
-    _check(xp, bp)
+        return rb_color_plain(xp, bp, colour, omega, offset, tab)
+    _check(xp, bp, tab)
     lib = _build.load()
     cells = _cells(xp)
     if not cells:
@@ -192,37 +305,39 @@ def rb_color(xp, bp, colour: int, omega: float, offset: int = 0):
     partials = torch.empty(nblocks, dtype=xp.dtype, device=xp.device)
     _, K, I2, J = xp.shape
     rc = getattr(lib, f"cz_rb_color_{_SUFFIX[xp.dtype]}")(
-        xp.data_ptr(), _ptr(bp), partials.data_ptr(), K, I2, J, colour,
-        offset, omega, cells, xp.device.index, _stream(xp),
+        xp.data_ptr(), ptr(bp), ptr(tab), partials.data_ptr(), K, I2, J,
+        colour, offset, omega, cells, xp.device.index, stream(xp),
     )
     _build.check(rc, "rb_color")
-    rb_color.launches += 1
+    count(rb_color, tab)
     return partials.sum(dtype=torch.float64)
 
 
-rb_color.launches = 0
+rb_color.launches = rb_color.maf_launches = 0
 
 _MAX_BLOCKS: dict = {}
 
 
-def rb_sweeps_n(xp, bp, n: int, omega: float, offset: int = 0):
+def rb_sweeps_n(xp, bp, n: int, omega: float, offset: int = 0, tab=None):
     """Launch ``rb_sweeps_kernel``: n full iterations in one cooperative
-    launch, in place.  Returns the (n,) float64 per-iteration sums of dp^2
-    (on the device).  A CPU tensor runs the plain twin."""
+    launch, in place; ``tab`` selects the MAF form.  Returns the (n,)
+    float64 per-iteration sums of dp^2 (on the device).  A CPU tensor runs
+    the plain twin."""
     if not xp.is_cuda:
-        return packed_sweeps_plain(xp, bp, n, omega, offset)[1]
-    _check(xp, bp)
+        return packed_sweeps_plain(xp, bp, n, omega, offset, tab)[1]
+    _check(xp, bp, tab)
     lib = _build.load()
     sfx = _SUFFIX[xp.dtype]
     dev = xp.device.index
     cells = _cells(xp)
     if not cells:
         return torch.zeros(n, dtype=torch.float64, device=xp.device)
-    key = (sfx, dev)
+    maf = int(tab is not None)
+    key = (sfx, maf, dev)
     if key not in _MAX_BLOCKS:
         out = ctypes.c_int(0)
         _build.check(
-            getattr(lib, f"cz_rb_sweeps_max_blocks_{sfx}")(dev, out),
+            getattr(lib, f"cz_rb_sweeps_max_blocks_{sfx}")(maf, dev, out),
             "rb_sweeps_n occupancy",
         )
         _MAX_BLOCKS[key] = out.value
@@ -231,15 +346,15 @@ def rb_sweeps_n(xp, bp, n: int, omega: float, offset: int = 0):
     r2 = torch.empty(n, dtype=torch.float64, device=xp.device)
     _, K, I2, J = xp.shape
     rc = getattr(lib, f"cz_rb_sweeps_n_{sfx}")(
-        xp.data_ptr(), _ptr(bp), partials.data_ptr(), r2.data_ptr(), K, I2, J,
-        n, offset, omega, cells, nblocks, dev, _stream(xp),
+        xp.data_ptr(), ptr(bp), ptr(tab), partials.data_ptr(), r2.data_ptr(),
+        K, I2, J, n, offset, omega, cells, nblocks, dev, stream(xp),
     )
     _build.check(rc, "rb_sweeps_n")
-    rb_sweeps_n.launches += 1
+    count(rb_sweeps_n, tab)
     return r2
 
 
-rb_sweeps_n.launches = 0
+rb_sweeps_n.launches = rb_sweeps_n.maf_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -247,12 +362,12 @@ rb_sweeps_n.launches = 0
 # --------------------------------------------------------------------------
 
 
-def _refuses(shape, dtype, mc) -> bool:
-    """True where the JAX package's packed layout refuses: odd I, or MAF
-    coefficients (slice 2).  Raises for a dtype the kernels do not take."""
+def _refuses(shape, dtype) -> bool:
+    """True where the JAX package's packed layout refuses: odd I.  Raises
+    for a dtype the kernels do not take."""
     if dtype not in _SUFFIX:
         raise TypeError(f"packed sweeps take float32 or float64, not {dtype}")
-    return shape[1] % 2 == 1 or mc is not None
+    return shape[1] % 2 == 1
 
 
 def _attach(step, shape, offset, ipc, single=None):
@@ -269,32 +384,35 @@ def make_packed_sweep(shape, dtype=torch.float32, *, omega: float,
                       offset: int = 0, b_is_zero: bool = False, mc=None,
                       plain: bool = False):
     """``step(xp, bp) -> (xp, r2)``: one red-black iteration (two
-    ``rb_color`` launches), r2 a 0-d float64 tensor.  None for odd I or MAF
-    coefficients (slice 2).  ``plain`` runs the twin on any device."""
-    if _refuses(shape, dtype, mc):
+    ``rb_color`` launches), r2 a 0-d float64 tensor.  ``mc`` (MafCoeffs)
+    selects the MAF update.  None for odd I.  ``plain`` runs the twin on
+    any device."""
+    if _refuses(shape, dtype):
         return None
+    tab = maf_tables(mc, shape, dtype)
     red_black = rb_color_plain if plain else rb_color
 
     def step(xp, bp):
         b = None if b_is_zero else bp
-        r2 = red_black(xp, b, 0, omega, offset)
-        return xp, r2 + red_black(xp, b, 1, omega, offset)
+        r2 = red_black(xp, b, 0, omega, offset, tab)
+        return xp, r2 + red_black(xp, b, 1, omega, offset, tab)
 
     return _attach(step, shape, offset, 1)
 
 
-def _make_n(shape, dtype, omega, n, offset, b_is_zero, plain):
+def _make_n(shape, dtype, omega, n, offset, b_is_zero, plain, mc):
+    tab = maf_tables(mc, shape, dtype)
     sweeps = (
-        (lambda xp, b: packed_sweeps_plain(xp, b, n, omega, offset)[1])
+        (lambda xp, b: packed_sweeps_plain(xp, b, n, omega, offset, tab)[1])
         if plain else
-        (lambda xp, b: rb_sweeps_n(xp, b, n, omega, offset))
+        (lambda xp, b: rb_sweeps_n(xp, b, n, omega, offset, tab))
     )
 
     def step(xp, bp):
         return xp, sweeps(xp, None if b_is_zero else bp)
 
     single = make_packed_sweep(shape, dtype, omega=omega, offset=offset,
-                               b_is_zero=b_is_zero, plain=plain)
+                               b_is_zero=b_is_zero, mc=mc, plain=plain)
     return _attach(step, shape, offset, n, single)
 
 
@@ -302,18 +420,18 @@ def make_packed_sweep2x(shape, dtype=torch.float32, *, omega: float,
                         offset: int = 0, b_is_zero: bool = True, mc=None,
                         plain: bool = False):
     """Two iterations per call (``rb_sweeps_n`` with n = 2, optional b);
-    r2 is a (2,) vector.  None for odd I or MAF coefficients."""
-    if _refuses(shape, dtype, mc):
+    r2 is a (2,) vector.  ``mc`` selects the MAF update.  None for odd I."""
+    if _refuses(shape, dtype):
         return None
-    return _make_n(shape, dtype, omega, 2, offset, b_is_zero, plain)
+    return _make_n(shape, dtype, omega, 2, offset, b_is_zero, plain, mc)
 
 
 def make_packed_sweepnx(shape, dtype=torch.float32, *, omega: float,
                         n: int = 3, offset: int = 0, mc=None,
                         plain: bool = False):
     """``n`` iterations per call, zero right-hand side (``bp`` is ignored);
-    r2 is an (n,) vector.  None for odd I, MAF coefficients, or n outside
-    2..9 (the JAX package's bounds)."""
-    if _refuses(shape, dtype, mc) or not 2 <= n <= 9:
+    r2 is an (n,) vector.  None for odd I, or n outside 2..9 (2..7 with
+    ``mc``): the JAX package's bounds."""
+    if _refuses(shape, dtype) or not 2 <= n <= (9 if mc is None else 7):
         return None
-    return _make_n(shape, dtype, omega, n, offset, True, plain)
+    return _make_n(shape, dtype, omega, n, offset, True, plain, mc)

@@ -1,12 +1,13 @@
-"""Constant-coefficient 7-point red-black SOR on the unpacked (K, I, J)
-layout (PyTorch port of the sor2sma part of ``cubez_tpu/ops/stencil.py``).
+"""Constant-coefficient 7-point Jacobi and red-black SOR on the unpacked
+(K, I, J) layout (PyTorch port of the point sweeps of
+``cubez_tpu/ops/stencil.py``).
 
 Masked dense updates: ``dp`` is computed everywhere, multiplied by the
 inner mask and the colour mask, and added to ``x``, so boundary nodes never
 change (psor2sma_core, cz_solver.f90:404-493).  The arithmetic is the JAX
 package's jnp form, ``((ss - b) / 6 - x) * omega``, with a true division.
 This sweep is independent of the packed layout: the tests hold the packed
-kernels against it, and it is the CPU path for odd I or a custom mask.
+kernels against it, and it is the path for a custom mask.
 """
 
 from __future__ import annotations
@@ -31,6 +32,13 @@ def jacobi_delta(x, b, msk, omega):
     dd = torch.tensor(DD, dtype=x.dtype, device=x.device)
     om = torch.tensor(omega, dtype=x.dtype, device=x.device)
     return ((nbr_sum(x) - b) / dd - x) * om * msk
+
+
+def jacobi_sweep(x, b, msk, omega):
+    """One Jacobi iteration (cz_solver.f90:284-387); returns (x_new,
+    sum(dp^2) in float64), the reference's res1 accumulator."""
+    dp = jacobi_delta(x, b, msk, omega)
+    return x + dp, (dp * dp).sum(dtype=torch.float64)
 
 
 def color_masks(shape_kij, offset: int = 0, dtype=torch.float32, device="cpu"):

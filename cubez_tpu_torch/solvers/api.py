@@ -12,7 +12,7 @@ from typing import Optional
 from ..core.problem import Problem
 from . import steps as steps_mod
 from .driver import EPS_DEFAULT, SolveResult, run_iterative
-from .fused_cache import get_fused_step, pad_unpad
+from .fused_cache import get_fused_step
 
 SOLVERS = steps_mod.ALL_SOLVERS
 IMPLS = ("auto", "plain")
@@ -31,31 +31,33 @@ def solve(
 ) -> SolveResult:
     """Solve ``problem`` with ``solver`` on the device its fields live on.
 
-    ``impl``: 'auto' runs the packed red-black steps, whose wrappers launch
-    the CUDA kernels for CUDA tensors and run the plain twins for CPU
-    tensors; 'plain' runs the plain twins on any device (same builders,
-    layout and iterations per call).  Odd I, or a mask other than the
-    standard one, needs the unpacked sweep: the plain one on the CPU or with
-    'plain', and on CUDA under 'auto' a NotImplementedError, since its
-    kernel (K4) is not ported.  ``precond`` is accepted for signature
-    parity and, as in the JAX package, unused by relaxation solvers.
-    ``check_every``: see driver.run_iterative; counts, histories and the
-    returned field do not depend on it."""
+    ``impl``: 'auto' runs the kernel steps (solvers/fused_cache.py), whose
+    wrappers launch the CUDA kernels for CUDA tensors and run the plain
+    twins for CPU tensors; 'plain' runs the plain twins on any device
+    (same builders, layout and iterations per call).  A ``_maf`` solver
+    takes ``problem.mc`` (ValueError without it).  The kernels synthesize
+    the standard mask from the indices, so a mask other than the standard
+    one runs the plain unpacked sweep: on the CPU or with 'plain', and on
+    CUDA under 'auto' a NotImplementedError, since no masked kernel is
+    ported.  ``precond`` is
+    accepted for signature parity and, as in the JAX package, unused by
+    relaxation solvers.  ``check_every``: see driver.run_iterative;
+    counts, histories and the returned field do not depend on it."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     kind, _ = steps_mod.require_ported(solver)
+    mc = steps_mod.maf_coeffs(problem, solver)
     g = problem.grid
-    step = None
     if problem.msk_is_standard():
-        step = get_fused_step(kind, g, omega, plain=impl == "plain",
+        step = get_fused_step(kind, g, omega, mc=mc, plain=impl == "plain",
                               b_is_zero=problem.rhs_is_inner_zero())
-    if step is not None:
-        pre, post = pad_unpad(kind, g, step)
+        pre, post = step.pad, step.unpad
     elif problem.x0.is_cuda and impl == "auto":
         raise NotImplementedError(
-            "odd I or a non-standard mask needs the unpacked fused sweep, "
-            "K4 (cubez_tpu/pallas_kernels/sweeps.py:416), which is not "
-            "ported; impl='plain' runs the plain PyTorch sweep"
+            "a non-standard mask needs a masked point sweep; the kernels "
+            "(K1-K4) synthesize the standard mask from the indices and no "
+            "masked kernel is ported; impl='plain' runs the plain PyTorch "
+            "sweep"
         )
     else:
         step = steps_mod.make_step(problem, solver, omega)

@@ -62,5 +62,18 @@ def test_cli_later_slices_raise(extra, where, tmp_path, monkeypatch):
 
 def test_cli_unported_solver_raises(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        main(["8", "8", "8", "jacobi", "10", "0.8", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        main(["8", "8", "8", "pcr_rb", "10", "1.5", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("solver,omega,iters", [
+    ("jacobi_maf", "0.8", 1015), ("sor2sma_maf", "1.5", 199),
+])
+def test_cli_maf_32_on_cpu(solver, omega, iters, tmp_path, monkeypatch, capsys):
+    """A _maf name gets the MAF problem, as the JAX package's CLI does; the
+    oracle's counts at 32^3."""
+    monkeypatch.chdir(tmp_path)
+    assert main(["32", "32", "32", solver, "10000", omega,
+                 "--device", "cpu"]) == 0
+    assert f"Iter = {iters}  Res = " in capsys.readouterr().out
+    assert len((tmp_path / f"{solver}.txt").read_text().splitlines()) == iters + 1

@@ -12,6 +12,7 @@ import torch
 
 import cubez_tpu_torch as czt
 from cubez_tpu_torch.cuda_kernels import rbpack as rb
+from cubez_tpu_torch.cuda_kernels import sweeps as k4
 
 torch.set_num_threads(1)
 
@@ -27,42 +28,68 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _builders():
+WRAPPERS = (rb.rb_color, rb.rb_sweeps_n, k4.jacobi_k4, k4.sor2sma_k4)
+
+
+def _launches():
+    return sum(w.launches for w in WRAPPERS)
+
+
+def _builders(mc):
+    """(label, build(shape, dtype, offset, plain)) for every kernel step;
+    ``mc`` selects the MAF forms (the window chain at n <= 7)."""
     yield "single b=0", lambda sh, dt, off, pl: rb.make_packed_sweep(
-        sh, dt, omega=OMEGA, offset=off, b_is_zero=True, plain=pl)
+        sh, dt, omega=OMEGA, offset=off, b_is_zero=True, mc=mc, plain=pl)
     yield "single b", lambda sh, dt, off, pl: rb.make_packed_sweep(
-        sh, dt, omega=OMEGA, offset=off, b_is_zero=False, plain=pl)
+        sh, dt, omega=OMEGA, offset=off, b_is_zero=False, mc=mc, plain=pl)
     yield "pair b", lambda sh, dt, off, pl: rb.make_packed_sweep2x(
-        sh, dt, omega=OMEGA, offset=off, b_is_zero=False, plain=pl)
+        sh, dt, omega=OMEGA, offset=off, b_is_zero=False, mc=mc, plain=pl)
     for n in (3, 4, 6):
         yield f"n={n}", lambda sh, dt, off, pl, n=n: rb.make_packed_sweepnx(
-            sh, dt, omega=OMEGA, n=n, offset=off, plain=pl)
+            sh, dt, omega=OMEGA, n=n, offset=off, mc=mc, plain=pl)
+    for kind in k4.KINDS:
+        for bz in (True, False):
+            yield f"K4 {kind} b={not bz}", (
+                lambda sh, dt, off, pl, kind=kind, bz=bz: k4.make_fused_sweep(
+                    kind, sh, dt, omega=OMEGA if kind == "sor2sma" else 0.8,
+                    offset=off, b_is_zero=bz, mc=mc, plain=pl))
 
 
+@pytest.mark.parametrize("maf", [False, True])
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(16, 16, 16), (13, 10, 17)])
-def test_kernels_match_plain_twins(dev, shape, dtype, offset):
+@pytest.mark.parametrize("shape", [(16, 16, 16), (13, 10, 17), (13, 11, 16)])
+def test_kernels_match_plain_twins(dev, shape, dtype, offset, maf):
     """float32 fields bitwise equal; float64 within 1e-14 (the twin has no
-    fma); residuals to rtol 1e-5 (block partial sums group differently)."""
+    fma); residuals to rtol 1e-5 (block partial sums group differently).
+    MAF on the stretched grid's coefficients; odd I takes K4 only."""
+    mc = None
+    if maf:
+        K, I, J = shape
+        mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                                device=dev)[0].mc
     gen = torch.Generator().manual_seed(3 + offset)
-    x0 = rb.pack_rb(torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1,
-                    offset).to(dev)
-    b0 = rb.pack_rb(torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1,
-                    offset).to(dev)
+    x = torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1
+    b = torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1
     tol = 0.0 if dtype == torch.float32 else 1e-14
-    for label, build in _builders():
+    n_steps = 0
+    for label, build in _builders(mc):
         kstep = build(shape, dtype, offset, False)
         pstep = build(shape, dtype, offset, True)
+        if kstep is None:  # odd I: no packed layout
+            continue
+        x0, b0 = kstep.pad(x.to(dev)), kstep.pad(b.to(dev))
         xk, xp = x0.clone(), x0.clone()
-        before = rb.rb_color.launches + rb.rb_sweeps_n.launches
+        before = _launches()
         for _ in range(3):
             xk, rk = kstep(xk, b0)
             xp, rp = pstep(xp, b0)
         torch.cuda.synchronize()
-        assert rb.rb_color.launches + rb.rb_sweeps_n.launches > before, label
+        assert _launches() > before, label
         assert float((xk - xp).abs().max()) <= tol, label
         torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+        n_steps += 1
+    assert n_steps == (4 if shape[1] % 2 else 10)
 
 
 def test_solve_on_cuda_matches_cpu_twin(dev):
@@ -87,9 +114,89 @@ def test_wrappers_refuse_what_they_cannot_take(dev):
         rb.rb_sweeps_n(x, x.double(), 2, OMEGA)
 
 
-def test_odd_i_on_cuda_names_k4(dev):
+def test_odd_i_on_cuda_launches_k4(dev):
+    """Odd I, where the packed layout refuses, runs K4's colour kernel, and
+    stops where the plain twin on the card stops."""
     prob = czt.Problem.poisson_cube((15, 16, 16), device=dev)
-    with pytest.raises(NotImplementedError, match="K4"):
-        czt.solve(prob, "sor2sma", omega=OMEGA, itr_max=10)
-    r = czt.solve(prob, "sor2sma", omega=OMEGA, itr_max=10, impl="plain")
-    assert r.iters == 10
+    before = k4.sor2sma_k4.launches
+    r = czt.solve(prob, "sor2sma", omega=OMEGA, itr_max=2000)
+    assert k4.sor2sma_k4.launches > before
+    p = czt.solve(prob, "sor2sma", omega=OMEGA, itr_max=2000, impl="plain")
+    assert r.iters == p.iters < 2000
+    assert torch.equal(r.x, p.x)
+
+
+@pytest.mark.parametrize("name", ["sor2sma", "jacobi"])
+def test_non_standard_mask_on_cuda_raises(dev, name):
+    """No kernel takes a mask other than the standard one, so 'auto'
+    refuses it on the card; 'plain' runs the plain sweep there."""
+    base = czt.Problem.poisson_cube(16, device="cpu")
+    msk = base.msk.numpy().copy()
+    msk[5:8, 6, 7] = 0.0  # an obstacle
+    prob = czt.Problem.from_arrays((16, 16, 16), torch.float32,
+                                   base.x0.numpy(), base.rhs.numpy(), msk,
+                                   rhs_inner_zero=True, device=dev)
+    before = _launches()
+    with pytest.raises(NotImplementedError, match="masked"):
+        czt.solve(prob, name, omega=0.8, itr_max=50)
+    assert _launches() == before
+    r = czt.solve(prob, name, omega=0.8, itr_max=50, impl="plain")
+    assert r.x.is_cuda and _launches() == before
+
+
+@pytest.mark.parametrize("name,omega", [
+    ("jacobi", 0.8), ("jacobi_maf", 0.8), ("sor2sma_maf", OMEGA),
+])
+def test_slice_2_solves_on_cuda_match_cpu_twin(dev, name, omega):
+    """jacobi (K4), jacobi_maf (K4-MAF) and sor2sma_maf (the packed MAF
+    pair) at 32^3: the oracle's counts, the CPU twin's field bit for bit,
+    and the MAF launches counted."""
+    maf = name.endswith("_maf")
+    g = czt.Problem.poisson_cube(32, device=dev, maf=maf)
+    c = czt.Problem.poisson_cube(32, device="cpu", maf=maf)
+    before = sum(w.maf_launches for w in WRAPPERS)
+    rg = czt.solve(g, name, omega=omega, itr_max=10000)
+    rc = czt.solve(c, name, omega=omega, itr_max=10000)
+    assert rg.iters == rc.iters == (199 if name == "sor2sma_maf" else 1015)
+    assert torch.equal(rg.x.cpu(), rc.x)
+    assert (sum(w.maf_launches for w in WRAPPERS) > before) == maf
+
+
+def test_jacobi_kernel_is_out_of_place(dev):
+    x = torch.rand(12, 13, 14, device=dev)
+    keep = x.clone()
+    out, _ = k4.jacobi_k4(x, None, 0.8)
+    torch.cuda.synchronize()
+    assert torch.equal(x, keep) and out.data_ptr() != x.data_ptr()
+    # the boundary shell is carried into the new field
+    inner = (slice(1, -1),) * 3
+    shell = torch.ones_like(x, dtype=torch.bool)
+    shell[inner] = False
+    assert torch.equal(out[shell], x[shell])
+    with pytest.raises(ValueError, match="out of place"):
+        k4.jacobi_k4(x, None, 0.8, out=x)
+
+
+def test_jacobi_step_alternates_two_buffers(dev):
+    """The step writes one of its two buffers, never the field it is
+    handed, and its fields equal the plain twin's step by step."""
+    shape = (12, 13, 14)
+    step = k4.make_fused_sweep("jacobi", shape, torch.float32, omega=0.8,
+                               b_is_zero=True)
+    twin = k4.make_fused_sweep("jacobi", shape, torch.float32, omega=0.8,
+                               b_is_zero=True, plain=True)
+    x0 = torch.rand(shape, device=dev)
+    keep = x0.clone()
+    xk, xp, ptrs = x0, x0.clone(), []
+    for _ in range(4):
+        xk, _ = step(xk, None)
+        xp, _ = twin(xp, None)
+        ptrs.append(xk.data_ptr())
+        assert torch.equal(xk, xp)
+    assert torch.equal(x0, keep)
+    assert ptrs[0] == ptrs[2] != ptrs[1] == ptrs[3] != x0.data_ptr()
+    # a foreign field (the driver's snapshot) is read, not written
+    snap = xp.clone()
+    xk, _ = step(snap, None)
+    xp, _ = twin(xp, None)
+    assert torch.equal(xk, xp) and xk.data_ptr() != snap.data_ptr()

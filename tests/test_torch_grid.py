@@ -92,9 +92,42 @@ def test_problem_flags():
     assert not dataclasses.replace(tp, msk=msk).msk_is_standard()
 
 
-def test_poisson_cube_maf_names_slice_2():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        czt.Problem.poisson_cube(8, device="cpu", maf=True)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_poisson_cube_maf_matches_jax(dtype):
+    """maf=True carries the uniform grid's MAF coefficients and pivot, bit
+    for bit the JAX package's; the fields are those of maf=False."""
+    jp = JProblem.poisson_cube((10, 12, 14), dtype=getattr(jnp, dtype), maf=True)
+    tp = czt.Problem.poisson_cube((10, 12, 14), dtype=getattr(torch, dtype),
+                                  device="cpu", maf=True)
+    for f in ("c1", "c7", "c2", "c8", "c3", "c9"):
+        np.testing.assert_array_equal(np.asarray(getattr(jp.mc, f)),
+                                      getattr(tp.mc, f).numpy(), err_msg=f)
+    np.testing.assert_array_equal(np.asarray(jp.pvt), tp.pvt.numpy())
+    np.testing.assert_array_equal(np.asarray(jp.x0), tp.x0.numpy())
+    assert czt.Problem.poisson_cube(8, device="cpu").mc is None
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_custom_coords_and_apply_bc_match_jax(dtype):
+    """Custom node coordinates round to the field dtype as the JAX
+    package's do; apply_bc re-imposes the shell like the JAX Grid's."""
+    from cubez_tpu.core.grid import Grid as JGrid
+
+    rng = np.random.default_rng(3)
+    cs = [tuple(np.sort(rng.uniform(0, 1, n)).tolist()) for n in (7, 9, 6)]
+    jg = JGrid(ni=7, nj=9, nk=6, dtype=getattr(jnp, dtype), coords_i=cs[0],
+               coords_j=cs[1], coords_k=cs[2])
+    tg = czt.Grid(ni=7, nj=9, nk=6, dtype=getattr(torch, dtype), device="cpu",
+                  coords_i=cs[0], coords_j=cs[1], coords_k=cs[2])
+    for a, name in zip("ijk", ("xc", "yc", "zc")):
+        np.testing.assert_array_equal(np.asarray(getattr(jg, name)),
+                                      getattr(tg, name).numpy())
+        np.testing.assert_array_equal(np.asarray(jg.coords(a)),
+                                      tg.coords(a).numpy())
+    p = rng.standard_normal(tg.shape_kij).astype(dtype)
+    np.testing.assert_array_equal(np.asarray(jg.apply_bc(jnp.asarray(p))),
+                                  tg.apply_bc(torch.tensor(p)).numpy())
+    assert hash(tg) == hash(dataclasses.replace(tg))
 
 
 def test_from_arrays_copies_and_checks_shape():

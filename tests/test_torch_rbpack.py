@@ -108,11 +108,11 @@ def test_window_chain_n3_bitwise_vs_jax():
 
 
 def test_fma_emulation_rounds_once():
-    """fma(ss, R6, -cen) where the exact value sits a hair off a float32
+    """fma(ss, R6, c) where the exact value sits a hair off a float32
     midpoint M, so that the float64 sum rounds onto M itself: a plain
     float64-then-float32 rounding then picks a neighbour by ties-to-even,
     wrong half the time; the emulation must pick the side of the exact
-    value.  (Such cases need |ss/6| > |cen|: with |cen| dominant the 48-bit
+    value.  (Such cases need |ss/6| > |c|: with |c| dominant the 48-bit
     product never has the 28-bit run of equal bits a tie needs.)"""
     r6 = np.float64(np.float32(1.0 / 6.0))
     rng = np.random.default_rng(7)
@@ -129,7 +129,8 @@ def test_fma_emulation_rounds_once():
     assert np.all(np.abs(d) < ulp32 * 2.0**-30)  # float64 rounds onto mid
     assert ss.size >= 100
     expect = (mid + np.sign(d) * ulp32 / 2).astype(np.float32)
-    got = trb._fma_r6(torch.tensor(ss), torch.tensor(-c))
+    got = trb._fma(torch.tensor(ss), torch.tensor(np.float32(r6)),
+                   torch.tensor(c))
     np.testing.assert_array_equal(got.numpy(), expect)
     naive = (p + c.astype(np.float64)).astype(np.float32)
     assert (naive != expect).sum() > ss.size // 4
@@ -155,16 +156,23 @@ def test_packed_twin_matches_unpacked_stencil():
 
 def test_builders_refuse_where_jax_layout_does():
     even, odd = (8, 10, 12), (8, 11, 12)
+    mc = czt.Problem.poisson_cube((10, 12, 8), device="cpu", maf=True).mc
     for make in (trb.make_packed_sweep, trb.make_packed_sweep2x):
         assert make(odd, omega=OMEGA) is None
-        assert make(even, omega=OMEGA, mc=object()) is None
+        assert make(odd, omega=OMEGA, mc=mc) is None
+        assert make(even, omega=OMEGA, mc=mc) is not None
         assert make(even, omega=OMEGA) is not None
     for n in (1, 10):
         assert trb.make_packed_sweepnx(even, omega=OMEGA, n=n) is None
     for n in range(2, 10):
         s = trb.make_packed_sweepnx(even, omega=OMEGA, n=n)
         assert s.iters_per_call == n and s.single.iters_per_call == 1
+        # MAF: n <= 7, the JAX package's tk guard band
+        s = trb.make_packed_sweepnx(even, omega=OMEGA, n=n, mc=mc)
+        assert (s is None) == (n > 7)
     assert trb.make_packed_sweepnx(odd, omega=OMEGA) is None
+    with pytest.raises(ValueError, match="entries"):
+        trb.make_packed_sweep((8, 10, 14), omega=OMEGA, mc=mc)
     with pytest.raises(TypeError):
         trb.make_packed_sweep(even, torch.float16, omega=OMEGA)
 

@@ -86,11 +86,15 @@ def test_auto_and_plain_agree_on_cpu():
 
 
 def test_dispatch_follows_jax_order():
-    g = czt.Problem.poisson_cube(16, device="cpu").grid
+    p = czt.Problem.poisson_cube(16, device="cpu", maf=True)
+    g = p.grid
     assert get_fused_step("sor2sma", g, 1.5, b_is_zero=True).iters_per_call == 6
     assert get_fused_step("sor2sma", g, 1.5).iters_per_call == 2
+    # MAF skips the window chain for the pair, as the JAX package does
+    assert get_fused_step("sor2sma", g, 1.5, mc=p.mc,
+                          b_is_zero=True).iters_per_call == 2
     odd = czt.Problem.poisson_cube((15, 16, 16), device="cpu").grid
-    assert get_fused_step("sor2sma", odd, 1.5, b_is_zero=True) is None
+    assert get_fused_step("sor2sma", odd, 1.5, b_is_zero=True).iters_per_call == 1
 
 
 @pytest.mark.parametrize("shape", [(15, 16, 14), (16, 16, 16)])
@@ -160,15 +164,35 @@ def test_write_history_byte_identical(tmp_path):
 
 
 @pytest.mark.parametrize("name,where", [
-    ("jacobi", "slice 3"), ("psor", "slice 6"), ("pcr", "slice 6"),
-    ("pcr_rb", "slice 5"), ("pcr_j_esa", "slice 5"), ("sor2sma_maf", "slice 2"),
-    ("jacobi_maf", "slice 3"), ("pbicgstab", "slice 4"), ("cg", "slice 4"),
+    ("psor", "slice 6"), ("pcr", "slice 6"),
+    ("pcr_rb", "slice 5"), ("pcr_j_esa", "slice 5"),
+    ("pbicgstab", "slice 4"), ("cg", "slice 4"),
     ("mg", "slice 7"), ("fd", "slice 7"),
 ])
 def test_unported_solvers_name_their_slice(name, where):
     prob = czt.Problem.poisson_cube(8, device="cpu")
     with pytest.raises(NotImplementedError, match=where):
         czt.solve(prob, name, omega=1.0, itr_max=10)
+
+
+@pytest.mark.parametrize("name,omega,n", [
+    ("jacobi", 0.8, 16), ("jacobi_maf", 0.8, 16), ("sor2sma_maf", 1.5, 16),
+    ("sor2sma", 1.5, (15, 16, 14)), ("sor2sma_maf", 1.5, (15, 16, 14)),
+])
+def test_slice_2_solvers_match_jax(name, omega, n):
+    """The solvers this slice brings (jacobi, jacobi_maf, sor2sma_maf, and
+    odd-I sor2sma on K4) solve on the CPU and stop where the JAX package's
+    jnp solve stops."""
+    maf = name.endswith("_maf")
+    tp = czt.Problem.poisson_cube(n, device="cpu", maf=maf)
+    r = czt.solve(tp, name, omega=omega, itr_max=3000)
+    rj = jsolve(JProblem.poisson_cube(n, dtype=jnp.float32, maf=maf), name,
+                omega=omega, itr_max=3000, impl="jnp")
+    assert r.res < 1e-5 and r.iters < 3000
+    assert abs(r.iters - rj.iters) <= 1
+    m = min(r.iters, rj.iters) - 1
+    np.testing.assert_allclose(r.history[:m].numpy(), np.asarray(rj.history)[:m],
+                               rtol=1e-3)
 
 
 def test_registry_verbatim_and_unknown_solver():
@@ -187,7 +211,9 @@ def test_registry_verbatim_and_unknown_solver():
 def test_import_pulls_in_no_jax():
     code = (
         "import sys; import cubez_tpu_torch, cubez_tpu_torch.cli, "
-        "cubez_tpu_torch.cuda_kernels.rbpack, cubez_tpu_torch.solvers.api; "
+        "cubez_tpu_torch.cuda_kernels.rbpack, cubez_tpu_torch.solvers.api, "
+        "cubez_tpu_torch.cuda_kernels.sweeps, cubez_tpu_torch.ops.maf, "
+        "cubez_tpu_torch.cuda_kernels._build; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'cubez_tpu.')) or m == 'cubez_tpu']; "
         "assert not bad, bad"
