@@ -20,6 +20,9 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
      without b, n = 3 and 6) on stretched-grid coefficients, and K4
      (jacobi and sor2sma, constant and MAF, with and without b) at 128^3,
      125^3 (odd I: K4 only) and the ragged shape, offsets 0 and 1;
+   - the line steps, constant and MAF, with and without b: K5 (rbl) at
+     128^3 and the ragged shape, K6's line-Jacobi (line_j) at all three,
+     K6's red-black form (line_rb) at 125^3 and the ragged shape;
 4. the main path, ``solve(Problem.poisson_cube(128, device="cuda"),
    "sor2sma", omega=1.5, itr_max=10000)``, with the kernels' launch counts
    zeroed just before: 1777-1849 iterations (the f32 oracle's 1813 +-2%),
@@ -37,15 +40,28 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
    which no solve dispatches;
 8. odd I: sor2sma and sor2sma_maf at 125^3 on K4's red-black form, the
    plain twin's iteration count and field;
-9. float64 stretched grids (Problem.manufactured_stretched) at 24^3 and
-   48^3: sor2sma_maf (the MAF pair with b) and jacobi_maf (K4-MAF with b)
-   to eps 1e-9 on the kernels, error ratio in the h^2 band (3.4, 5.0);
-10. the CLI in subprocesses, ``124 124 124 sor2sma 10000 1.5``, ``... jacobi
-    10000 0.8`` and ``... sor2sma_maf 10000 1.5``;
-11. times each step and its plain twin at 128^3 and 512^3 (sor2sma on the
+9. the line solvers (slice 5), each with the counts zeroed just before
+   and read just after: at 128^3 f32 pcr_rb (K5; the f32 oracle's 1356
+   +-2%), pcr_rb_maf (K5-MAF; 1355) and pcr_j_esa at omega 1.0 (K6
+   line_j; 4230), histories to rtol 1e-3 (pcr_rb_maf's and pcr_j_esa's
+   against the oracle with float64 sums of dp^2, tests/torch_ref_histories)
+   and Error max to the float64 oracle's (rtol 1e-2); 60 fixed sweeps of K6's MAF
+   line-Jacobi, which no solver name dispatches; f64 pcr_rb at 64^3 (459
+   +-1%, rtol 1e-6); odd I at 125^3, pcr_rb on K6's red-black form (the
+   plain twin's count and field) and pcr_rb_maf (its MAF form);
+10. float64 stretched grids (Problem.manufactured_stretched) at 24^3 and
+    48^3: sor2sma_maf (the MAF pair with b), jacobi_maf (K4-MAF with b) and
+    pcr_rb_maf (K5-MAF with b, the "krylov" sign) to eps 1e-9 on the
+    kernels, error ratio in the h^2 band (3.4, 5.0);
+11. the CLI in subprocesses, ``124 124 124 sor2sma 10000 1.5``, ``... jacobi
+    10000 0.8``, ``... sor2sma_maf 10000 1.5`` and ``... pcr_rb 10000 1.5``
+    (pcr_rb's count to the JAX package's CLI's +-2%, its Error max at rtol
+    1e-2);
+12. times each step and its plain twin at 128^3 and 512^3 (sor2sma on the
     n = 6 chain, jacobi on K4, sor2sma_maf on the MAF pair, the MAF chain
-    at n = 6; CUDA events, distinct random starts, long-minus-short
-    differencing), and every kernel per call against its twin at 128^3.
+    at n = 6, pcr_rb on K5, pcr_rb_maf on K5-MAF, pcr_j_esa on K6; CUDA
+    events, distinct random starts, long-minus-short differencing), and
+    every kernel per call against its twin at 128^3.
 
 The line before the last is a JSON object with one entry per kernel
 variant; the last is ``{"ok": true, "device": {...}}``.
@@ -64,10 +80,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HIST = ROOT / "tests" / "ref_histories"
-# the oracle with float64 dp^2 sums in jacobi/jacobi_maf (tools/ref_oracle_f64sum.py)
+# the oracle with float64 dp^2 sums in jacobi(_maf), pcr_j_esa and pcr_rb_maf
+# (tools/ref_oracle_f64sum.py)
 HIST64 = ROOT / "tests" / "torch_ref_histories"
+# Error max of the float64 oracle at 128^3 (tools/ref_oracle.cpp --fp64),
+# and (Iter, Error max) of the JAX package's CLI at 124^3 (124 124 124
+# pcr_rb 10000 1.5, float32).  Rounding alone moves a float32 solve's
+# Error max by up to 0.7% from the float64 one (the f32 oracle's pcr_rb:
+# 9.994804e-03; the JAX package's pcr_rb_maf: 1.003075e-02), so Error max
+# is held to these at rtol 1e-2.
+ERR_F64_128 = {"pcr_rb": 1.006167e-02, "pcr_rb_maf": 1.006167e-02,
+               "pcr_j_esa": 6.054431e-02}
+JAX_CLI_124 = {"pcr_rb": (1294, 9.358376e-03)}
+ERR_RTOL = 1e-2
 OMEGA = 1.5
 OMEGA_J = 0.8
+OMEGA_L = 1.0  # pcr_j_esa: line-Jacobi diverges above about 1.0
 SEED = 20261016
 RAGGED = (37, 22, 45)  # (K, I, J)
 
@@ -99,6 +127,8 @@ def main():
     sys.path.insert(0, str(ROOT))
     from cubez_tpu_torch import Grid, Problem, max_error_loc, solve
     from cubez_tpu_torch.cuda_kernels import _build
+    from cubez_tpu_torch.cuda_kernels import lines as k6
+    from cubez_tpu_torch.cuda_kernels import rblines as k5
     from cubez_tpu_torch.cuda_kernels import rbpack as rb
     from cubez_tpu_torch.cuda_kernels import sweeps as k4
     from cubez_tpu_torch.solvers.driver import fixed_sweeps
@@ -112,7 +142,8 @@ def main():
     # each wrapper counts its launches, and separately its MAF launches; a
     # kernel variant is a wrapper's constant or MAF form
     wrappers = {"rb_color": rb.rb_color, "rb_sweeps_n": rb.rb_sweeps_n,
-                "k4_jacobi": k4.jacobi_k4, "k4_rb_color": k4.sor2sma_k4}
+                "k4_jacobi": k4.jacobi_k4, "k4_rb_color": k4.sor2sma_k4,
+                "rbl": k5.rbl, "line_j": k6.line_j, "line_rb": k6.line_rb}
 
     def zero_counts():
         for w in wrappers.values():
@@ -125,7 +156,10 @@ def main():
             out[name + "_maf"] = w.maf_launches
         return out
 
-    path_launches = {}  # variant -> launches in the path that runs it
+    path_launches = {}  # variant -> launches in the first path that runs it
+
+    def stamp(phase):
+        print(f"[{time.perf_counter() - t_start:.1f} s] phase {phase}", flush=True)
 
     # ---- 1. the card ------------------------------------------------------
     card = card_line()
@@ -143,6 +177,7 @@ def main():
             print("  " + ln.strip())
 
     # ---- 3. kernels vs plain twins ------------------------------------------
+    stamp(3)
     gen = torch.Generator().manual_seed(SEED)
 
     def rand(shape, dtype):
@@ -163,8 +198,21 @@ def main():
             kind, sh, dt, omega=OMEGA if kind == "sor2sma" else OMEGA_J,
             offset=off, b_is_zero=bz, mc=mc, plain=pl)
 
+    def line_step(kind, bz):
+        if kind == "rbl":
+            return lambda sh, dt, off, mc, pl: k5.make_rbl_step(
+                sh, dt, omega=OMEGA, offset=off, b_is_zero=bz, mc=mc, plain=pl)
+        return lambda sh, dt, off, mc, pl: k6.make_line_step(
+            kind, sh, dt, omega=OMEGA_L if kind == "pcr_j" else OMEGA,
+            offset=off, b_is_zero=bz, mc=mc, plain=pl)
+
     const_shapes = ((128, 128, 128), (124, 124, 124), RAGGED)
     new_shapes = ((128, 128, 128), (125, 125, 125), RAGGED)
+    # (kind, variant, shapes): K5 where I is even, K6's red-black form where
+    # the dispatch takes it (odd I) and on the ragged shape
+    line_kinds = (("rbl", "rbl", ((128, 128, 128), RAGGED)),
+                  ("pcr_j", "line_j", new_shapes),
+                  ("pcr_rb", "line_rb", ((125, 125, 125), RAGGED)))
     cases = [
         ("single b=0", "rb_color", const_shapes, False,
          packed(rb.make_packed_sweep, b_is_zero=True)),
@@ -194,6 +242,11 @@ def main():
          f"k4_{'jacobi' if kind == 'jacobi' else 'rb_color'}"
          f"{'_maf' if maf else ''}", new_shapes, maf, unpacked(kind, bz))
         for kind in k4.KINDS for maf in (False, True) for bz in (True, False)
+    ] + [
+        (f"{kind}{' MAF' if maf else ''} b={'0' if bz else 'b'}",
+         f"{variant}{'_maf' if maf else ''}", shapes, maf, line_step(kind, bz))
+        for kind, variant, shapes in line_kinds
+        for maf in (False, True) for bz in (True, False)
     ]
     err = {}
     n_cmp = 0
@@ -206,7 +259,8 @@ def main():
             x, b = rand(shape, dtype).to(dev), rand(shape, dtype).to(dev)
             for offset in (0, 1):
                 for label, variant, shapes, maf, build in cases:
-                    if shape not in shapes:
+                    # line-Jacobi has no colours, so no offset
+                    if shape not in shapes or (offset and "line_j" in variant):
                         continue
                     ks = build(shape, dtype, offset, mc if maf else None, False)
                     ps = build(shape, dtype, offset, mc if maf else None, True)
@@ -232,6 +286,7 @@ def main():
           flush=True)
 
     # ---- 4. the main path ------------------------------------------------------
+    stamp(4)
     prob = Problem.poisson_cube(128, dtype=torch.float32, device="cuda")
     sync()
     zero_counts()
@@ -263,6 +318,7 @@ def main():
           f"{loc_k} (plain twin: {err_p:e} at {loc_p}) {tag}", flush=True)
 
     # ---- 5. float64 at 128^3 -------------------------------------------------
+    stamp(5)
     prob64 = Problem.poisson_cube(128, dtype=torch.float64, device="cuda")
     res64 = solve(prob64, "sor2sma", omega=OMEGA, itr_max=10000)
     ref64 = load_history("f64_sor2sma_128_w1.5.txt")
@@ -277,6 +333,7 @@ def main():
     del prob64, res64
 
     # ---- 6. float32 at 512^3 ---------------------------------------------------
+    stamp(6)
     prob512 = Problem.poisson_cube(512, dtype=torch.float32, device="cuda")
     sync()
     t0 = time.perf_counter()
@@ -291,25 +348,31 @@ def main():
     del prob512, res512
 
     # ---- 7. the slice-2 paths at 128^3 f32 -------------------------------------
-    def drive(name, omega, n, variants, itr_max=10000, **kw):
+    stamp(7)
+    def drive(name, omega, n, variants, itr_max=10000, twin=True,
+              dtype=torch.float32):
         """Solve with the counts zeroed just before and read just after;
-        every kernel variant of the path must have launched."""
-        p = Problem.poisson_cube(n, dtype=torch.float32, device="cuda",
+        every kernel variant of the path must have launched.  ``twin``: also
+        solve on the plain twins (None otherwise), which must stop at the
+        same iteration."""
+        p = Problem.poisson_cube(n, dtype=dtype, device="cuda",
                                  maf=name.endswith("_maf"))
         sync()
         zero_counts()
         t0 = time.perf_counter()
-        r = solve(p, name, omega=omega, itr_max=itr_max, **kw)
+        r = solve(p, name, omega=omega, itr_max=itr_max)
         sync()
         wall = time.perf_counter() - t0
         counts = read_counts()
         for v in variants:
             check(counts[v] > 0, f"{name} {n}: {v} was not launched")
-            path_launches[v] = counts[v]
+            path_launches.setdefault(v, counts[v])
         check(bool(torch.isfinite(r.x).all()), f"{name} {n}: field not finite")
-        rp = solve(p, name, omega=omega, itr_max=itr_max, impl="plain", **kw)
-        check(rp.iters == r.iters,
-              f"{name} {n}: {r.iters} iterations, plain twin {rp.iters}")
+        rp = None
+        if twin:
+            rp = solve(p, name, omega=omega, itr_max=itr_max, impl="plain")
+            check(rp.iters == r.iters,
+                  f"{name} {n}: {r.iters} iterations, plain twin {rp.iters}")
         return p, r, rp, wall, {v: counts[v] for v in variants}
 
     # The f32 oracle's jacobi and jacobi_maf sum dp^2 serially in float32
@@ -363,6 +426,7 @@ def main():
     del p, chain, xc
 
     # ---- 8. odd I on K4 ----------------------------------------------------------
+    stamp(8)
     for name, variant in (("sor2sma", "k4_rb_color"),
                           ("sor2sma_maf", "k4_rb_color_maf")):
         p, r, rp, wall, cnt = drive(name, OMEGA, 125, (variant,))
@@ -371,13 +435,99 @@ def main():
               f"{r.res:e}, wall {wall:.3f} s, launches {cnt}, field bitwise "
               f"equal to the plain twin's {tag}", flush=True)
 
-    # ---- 9. stretched grids, float64 ------------------------------------------
-    for name, omega, variant in (("sor2sma_maf", OMEGA, "rb_sweeps_n_maf"),
-                                 ("jacobi_maf", OMEGA_J, "k4_jacobi_maf")):
+    # ---- 9. the line solvers ---------------------------------------------------
+    stamp(9)
+    # pcr_rb's oracle sums dp^2 in double, so its curve is held to the f32
+    # oracle; pcr_rb_maf's and pcr_j_esa's sum in one float (ref_oracle.cpp
+    # line_sweep_maf, line_sweep's JACOBI branch), so theirs to the variant
+    # with float64 sums (HIST64), as jacobi's above.  Their twins at 128^3
+    # would take minutes (a Python loop over k per sweep), so Error max is
+    # held to the float64 oracle's (ERR_F64_128); the twin's count and field
+    # are checked at 125^3 below.
+    for name, omega, oracle, variant, curve in (
+        ("pcr_rb", OMEGA, "f32_pcr_rb_128_w1.5.txt", "rbl", None),
+        ("pcr_rb_maf", OMEGA, "f32_pcr_rb_maf_128_w1.5.txt", "rbl_maf",
+         "f32_pcr_rb_maf_128_w1.5_f64sum.txt"),
+        ("pcr_j_esa", OMEGA_L, "f32_pcr_j_esa_128_w1.0.txt", "line_j",
+         "f32_pcr_j_esa_128_w1.0_f64sum.txt"),
+    ):
+        p, r, _, wall, cnt = drive(name, omega, 128, (variant,), twin=False)
+        ref = load_history(oracle)
+        check(abs(r.iters - len(ref)) <= len(ref) * 2 // 100,
+              f"{name} 128^3: {r.iters} iterations vs the oracle's {len(ref)}")
+        if curve is not None:
+            ref = load_history(curve, HIST64)
+        m = min(r.iters, len(ref)) - 1
+        h = r.history.cpu().tolist()
+        worst = max(abs(a / b - 1) for a, b in zip(h[:m], ref[:m]))
+        check(worst <= 1e-3, f"{name} 128^3: history rtol {worst}")
+        ek, lk = max_error_loc(p.grid, r.x)
+        e64 = ERR_F64_128[name]
+        check(abs(ek / e64 - 1) <= ERR_RTOL,
+              f"{name}: Error max {ek} vs the f64 oracle's {e64}")
+        print(f"{name} 128^3 f32 omega {omega}: {r.iters} iterations (f32 "
+              f"oracle {len(load_history(oracle))}), res {r.res:e}, history "
+              f"rtol {worst:.2e} (vs {curve or oracle}), wall {wall:.3f} s, "
+              f"launches {cnt}, Error max {ek:e} at {lk} (f64 oracle "
+              f"{e64:e}) {tag}", flush=True)
+        del p, r
+
+    # K6's MAF line-Jacobi has no solver name of its own (the reference has
+    # no pcr_j_esa_maf): drive it through the dispatch in fixed sweeps.
+    p = Problem.poisson_cube(128, dtype=torch.float32, device="cuda", maf=True)
+    step = get_fused_step("pcr", p.grid, OMEGA_L, mc=p.mc, b_is_zero=True)
+    sync()
+    zero_counts()
+    xl = step.unpad(fixed_sweeps(step, step.pad(p.x0), None, 60))
+    sync()
+    path_launches["line_j_maf"] = read_counts()["line_j_maf"]
+    check(path_launches["line_j_maf"] == 60,
+          f"MAF line-Jacobi: {path_launches['line_j_maf']} launches")
+    check(bool(torch.isfinite(xl).all()), "MAF line-Jacobi: field not finite")
+    print(f"MAF line-Jacobi 128^3 f32: 60 fixed sweeps in "
+          f"{path_launches['line_j_maf']} launches {tag}", flush=True)
+    del p, step, xl
+
+    # f64 pcr_rb at 64^3 against the f64 oracle
+    p, r, _, _, _ = drive("pcr_rb", OMEGA, 64, ("rbl",), twin=False,
+                          dtype=torch.float64)
+    ref64 = load_history("f64_pcr_rb_64_w1.5.txt")
+    check(abs(r.iters - len(ref64)) <= max(1, len(ref64) // 100),
+          f"f64 pcr_rb 64^3: {r.iters} vs oracle {len(ref64)}")
+    m = min(r.iters, len(ref64))
+    h = r.history.cpu().tolist()
+    worst64 = max(abs(a / b - 1) for a, b in zip(h[:m], ref64[:m]))
+    check(worst64 <= 1e-6, f"f64 pcr_rb 64^3: history rtol {worst64}")
+    print(f"f64 pcr_rb 64^3: {r.iters} iterations (f64 oracle {len(ref64)}), "
+          f"history rtol {worst64:.2e}", flush=True)
+
+    # odd I: K6's red-black form, against the twin for the constant form
+    p, r, rp, wall, cnt = drive("pcr_rb", OMEGA, 125, ("line_rb",))
+    check(torch.equal(r.x, rp.x), "pcr_rb 125^3: field != plain twin's")
+    print(f"pcr_rb 125^3 f32 (odd I, K6): {r.iters} iterations, res "
+          f"{r.res:e}, wall {wall:.3f} s, launches {cnt}, field bitwise equal "
+          f"to the plain twin's {tag}", flush=True)
+    odd_iters = r.iters
+    p, r, _, wall, cnt = drive("pcr_rb_maf", OMEGA, 125, ("line_rb_maf",),
+                               twin=False)
+    check(abs(r.iters - odd_iters) <= odd_iters * 2 // 100,
+          f"pcr_rb_maf 125^3: {r.iters} iterations vs pcr_rb's {odd_iters}")
+    print(f"pcr_rb_maf 125^3 f32 (odd I, K6-MAF): {r.iters} iterations, res "
+          f"{r.res:e}, wall {wall:.3f} s, launches {cnt} {tag}", flush=True)
+    del p, r, rp
+
+    # ---- 10. stretched grids, float64 -----------------------------------------
+    stamp(10)
+    # the line solvers solve L x = b, the point sweeps take rp + b: the
+    # stretched problem's "krylov" sign for pcr_rb_maf
+    for name, omega, variant, family in (
+            ("sor2sma_maf", OMEGA, "rb_sweeps_n_maf", "relax"),
+            ("jacobi_maf", OMEGA_J, "k4_jacobi_maf", "relax"),
+            ("pcr_rb_maf", OMEGA, "rbl_maf", "krylov")):
         errs, its = {}, {}
         for n in (24, 48):
             p, u = Problem.manufactured_stretched(n, dtype=torch.float64,
-                                                  device=dev)
+                                                  family=family, device=dev)
             zero_counts()
             r = solve(p, name, omega=omega, itr_max=40000, eps=1e-9)
             sync()
@@ -391,12 +541,14 @@ def main():
               f"48^3 {errs[48]:.4e} ({its[48]} it), ratio {ratio:.3f} "
               f"(h^2 band 3.4-5.0)", flush=True)
 
-    # ---- 10. the CLI -------------------------------------------------------------
+    # ---- 11. the CLI -------------------------------------------------------------
+    stamp(11)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p]
     )
-    runs = (("sor2sma", "1.5"), ("jacobi", "0.8"), ("sor2sma_maf", "1.5"))
+    runs = (("sor2sma", "1.5"), ("jacobi", "0.8"), ("sor2sma_maf", "1.5"),
+            ("pcr_rb", "1.5"))
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for solver, omega in runs:
@@ -420,8 +572,20 @@ def main():
             for ln in out.splitlines():
                 if ln.startswith(("Iter =", "wall =", "Error max")):
                     print(f"CLI 124^3 {solver}: {ln.strip()}")
+                if solver not in JAX_CLI_124:
+                    continue
+                its, err_j = JAX_CLI_124[solver]
+                if ln.startswith("Iter ="):
+                    it = int(ln.split()[2])
+                    check(abs(it - its) <= its * 2 // 100,
+                          f"CLI {solver}: {it} iterations vs the JAX CLI's {its}")
+                if ln.startswith("Error max"):
+                    e = float(ln.split()[3])
+                    check(abs(e / err_j - 1) <= ERR_RTOL,
+                          f"CLI {solver}: Error max {e} vs the JAX CLI's {err_j}")
 
-    # ---- 11. timing ------------------------------------------------------------
+    # ---- 12. timing ------------------------------------------------------------
+    stamp(12)
     def events_ms(fn, reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -449,7 +613,8 @@ def main():
         return (min(med[long]) - min(med[short])) / (long - short)
 
     # (label, solver kind, MAF, n of the packed chain or None for the
-    # dispatch, {size: ((kernel short, long), (plain short, long, reps))})
+    # dispatch, {size: ((kernel short, long), (plain short, long, reps))});
+    # the line twins loop over k in Python, so they get few iterations
     timed = (
         ("sor2sma", "sor2sma", False, None,
          {128: ((60, 600), (6, 36, 3)), 512: ((12, 72), (6, 18, 3))}),
@@ -459,7 +624,14 @@ def main():
          {128: ((60, 600), (4, 16, 3)), 512: ((12, 72), (2, 6, 1))}),
         ("MAF chain n=6 (K3-MAF)", "sor2sma", True, 6,
          {128: ((60, 600), (6, 18, 3)), 512: ((12, 72), (6, 12, 1))}),
+        ("pcr_rb (K5)", "pcr_rb", False, None,
+         {128: ((40, 400), (2, 6, 3)), 512: ((4, 24), (1, 3, 1))}),
+        ("pcr_rb_maf (K5-MAF)", "pcr_rb", True, None,
+         {128: ((40, 400), (2, 6, 3)), 512: ((4, 24), (1, 3, 1))}),
+        ("pcr_j_esa (K6)", "pcr", False, None,
+         {128: ((40, 400), (2, 6, 3)), 512: ((4, 24), (1, 3, 1))}),
     )
+    omegas = {"jacobi": OMEGA_J, "pcr": OMEGA_L}
     timing = {}
     for n in (128, 512):
         g = Grid(n, n, n, f32, dev)
@@ -469,9 +641,9 @@ def main():
             for impl in ("kernel", "plain"):
                 plain = impl == "plain"
                 if nx is None:
-                    step = get_fused_step(kind, g, OMEGA_J if kind == "jacobi"
-                                          else OMEGA, mc=mc if maf else None,
-                                          plain=plain, b_is_zero=True)
+                    step = get_fused_step(kind, g, omegas.get(kind, OMEGA),
+                                          mc=mc if maf else None, plain=plain,
+                                          b_is_zero=True)
                 else:
                     step = rb.make_packed_sweepnx(g.shape_kij, f32, omega=OMEGA,
                                                   n=nx, mc=mc, plain=plain)
@@ -491,8 +663,12 @@ def main():
     xs = rb.pack_rb(rand(sh, f32)).to(dev)
     bs = rb.pack_rb(rand(sh, f32)).to(dev)
     xu = rand(sh, f32).to(dev)
+    xl = k5.pack_rb_lines(rand(sh, f32).to(dev))
     tab = rb.maf_tables(Problem.poisson_cube(128, device=dev, maf=True).mc,
                         sh, f32)
+    # the line kernels' scratch, owned by their steps on the path
+    gl, el = (torch.empty(xl.shape[1:], device=dev) for _ in range(2))
+    out, gu, eu = (torch.empty_like(xu) for _ in range(3))
     calls = {
         "rb_color": (lambda: rb.rb_color(xs, None, 0, OMEGA),
                      lambda: rb.rb_color_plain(xs, None, 0, OMEGA)),
@@ -514,6 +690,18 @@ def main():
                         lambda: k4.sor2sma_plain(xu, None, OMEGA)),
         "k4_rb_color_maf": (lambda: k4.sor2sma_k4(xu, None, OMEGA, tab=tab),
                             lambda: k4.sor2sma_plain(xu, None, OMEGA, tab=tab)),
+        "rbl": (lambda: k5.rbl(xl, None, OMEGA, g=gl),
+                lambda: k5.rbl_plain(xl, None, OMEGA)),
+        "rbl_maf": (lambda: k5.rbl(xl, None, OMEGA, tab=tab, g=gl, e=el),
+                    lambda: k5.rbl_plain(xl, None, OMEGA, tab=tab)),
+        "line_j": (lambda: k6.line_j(xu, None, OMEGA_L, out=out),
+                   lambda: k6.line_j_plain(xu, None, OMEGA_L)),
+        "line_j_maf": (lambda: k6.line_j(xu, None, OMEGA_L, tab, out=out, e=eu),
+                       lambda: k6.line_j_plain(xu, None, OMEGA_L, tab)),
+        "line_rb": (lambda: k6.line_rb(xu, None, OMEGA, g=gu),
+                    lambda: k6.line_rb_plain(xu, None, OMEGA)),
+        "line_rb_maf": (lambda: k6.line_rb(xu, None, OMEGA, tab=tab, g=gu, e=eu),
+                        lambda: k6.line_rb_plain(xu, None, OMEGA, tab=tab)),
     }
     per_call = {}
     for name, (kfn, pfn) in calls.items():
@@ -526,12 +714,16 @@ def main():
         per_call[name] = (min(k1, k2), min(p1, p2))
         print(f"per call at 128^3 f32: {name} {per_call[name][0]:.4f} ms, "
               f"plain twin {per_call[name][1]:.4f} ms {tag}")
-    check(bool(torch.isfinite(xs).all() and torch.isfinite(xu).all()),
+    check(all(bool(torch.isfinite(t).all()) for t in (xs, xu, xl, out)),
           "timing fields not finite")
 
     rbpack_cu = "cubez_tpu_torch/csrc/rbpack.cu"
     sweeps_cu = "cubez_tpu_torch/csrc/sweeps.cu"
+    rblines_cu = "cubez_tpu_torch/csrc/rblines.cu"
+    lines_cu = "cubez_tpu_torch/csrc/lines.cu"
     k4_site = "cubez_tpu/pallas_kernels/sweeps.py:416"
+    k5_site = "cubez_tpu/pallas_kernels/rblines.py:407"
+    k6_site = "cubez_tpu/pallas_kernels/lines.py:441"
     meta = {
         "rb_color": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
         "rb_color_maf": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
@@ -544,6 +736,12 @@ def main():
         "k4_jacobi_maf": (sweeps_cu, k4_site),
         "k4_rb_color": (sweeps_cu, k4_site),
         "k4_rb_color_maf": (sweeps_cu, k4_site),
+        "rbl": (rblines_cu, k5_site),
+        "rbl_maf": (rblines_cu, k5_site),
+        "line_j": (lines_cu, k6_site),
+        "line_j_maf": (lines_cu, k6_site),
+        "line_rb": (lines_cu, k6_site),
+        "line_rb_maf": (lines_cu, k6_site),
     }
     for name in meta:
         check(path_launches.get(name, 0) > 0, f"{name}: no path launched it")

@@ -1,4 +1,5 @@
-// Helpers shared by the port's kernels (rbpack.cu, sweeps.cu).
+// Helpers shared by the port's kernels (rbpack.cu, sweeps.cu, lines.cu,
+// rblines.cu).
 //
 // Every floating-point operation of a sweep goes through an explicit
 // round-to-nearest intrinsic, and the sources are built with --fmad=false,

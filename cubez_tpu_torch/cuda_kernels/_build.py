@@ -64,6 +64,8 @@ def _declare(lib):
     lib.cz_threads_per_block.restype = i32
     lib.cz_error_string.argtypes = [i32]
     lib.cz_error_string.restype = ctypes.c_char_p
+    lib.cz_line_threads_per_block.argtypes = []
+    lib.cz_line_threads_per_block.restype = i32
     for t in ("f32", "f64"):
         for name, args in (
             # rbpack.cu
@@ -76,6 +78,13 @@ def _declare(lib):
             ("k4_jacobi", [vp, vp, vp, vp, vp, i32, i32, i32, f64, i32, vp]),
             ("k4_rb_color", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64, i32,
                              vp]),
+            # lines.cu (K6) and rblines.cu (K5)
+            ("line_j", [vp, vp, vp, vp, vp, vp, i32, i32, i32, f64, i32, i32,
+                        vp]),
+            ("line_rb_color", [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                               f64, i32, i32, vp]),
+            ("rbl_color", [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,
+                           i32, i32, vp]),
         ):
             fn = getattr(lib, f"cz_{name}_{t}")
             fn.argtypes = args

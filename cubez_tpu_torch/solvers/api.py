@@ -3,6 +3,8 @@ solver dispatch of CZ::Evaluate, cz_Evaluate.cpp:414-489).
 
     result = solve(Problem.poisson_cube(128, device="cuda"), "sor2sma",
                    omega=1.5, itr_max=10000)
+    result = solve(Problem.poisson_cube(128, device="cuda"), "pcr_rb",
+                   omega=1.5, itr_max=10000)
 """
 
 from __future__ import annotations
@@ -37,9 +39,11 @@ def solve(
     (same builders, layout and iterations per call).  A ``_maf`` solver
     takes ``problem.mc`` (ValueError without it).  The kernels synthesize
     the standard mask from the indices, so a mask other than the standard
-    one runs the plain unpacked sweep: on the CPU or with 'plain', and on
-    CUDA under 'auto' a NotImplementedError, since no masked kernel is
-    ported.  ``precond`` is
+    one runs the plain unpacked sweep (ops/stencil.py, ops/maf.py, or the
+    line twins with the mask): on the CPU or with 'plain', and on CUDA
+    under 'auto' a NotImplementedError, since no masked kernel is ported.
+    So does a line solver with fewer than two inner points along K, which
+    has no kernel step (the JAX package's n = K - 2 < 2).  ``precond`` is
     accepted for signature parity and, as in the JAX package, unused by
     relaxation solvers.  ``check_every``: see driver.run_iterative;
     counts, histories and the returned field do not depend on it."""
@@ -48,20 +52,23 @@ def solve(
     kind, _ = steps_mod.require_ported(solver)
     mc = steps_mod.maf_coeffs(problem, solver)
     g = problem.grid
-    if problem.msk_is_standard():
+    step = pre = post = None
+    if not problem.msk_is_standard():
+        why = ("a non-standard mask needs a masked sweep; the kernels "
+               "synthesize the standard mask from the indices and no masked "
+               "kernel is ported")
+    else:
         step = get_fused_step(kind, g, omega, mc=mc, plain=impl == "plain",
                               b_is_zero=problem.rhs_is_inner_zero())
+        why = (f"'{solver}' has no kernel step at (K, I, J) = {g.shape_kij}: "
+               "the line kernels need K - 2 >= 2")
+    if step is not None:
         pre, post = step.pad, step.unpad
     elif problem.x0.is_cuda and impl == "auto":
         raise NotImplementedError(
-            "a non-standard mask needs a masked point sweep; the kernels "
-            "(K1-K4) synthesize the standard mask from the indices and no "
-            "masked kernel is ported; impl='plain' runs the plain PyTorch "
-            "sweep"
-        )
+            f"{why}; impl='plain' runs the plain PyTorch sweep")
     else:
         step = steps_mod.make_step(problem, solver, omega)
-        pre = post = None
     result = run_iterative(
         step, problem.x0, problem.rhs, g.res_normal, itr_max, eps,
         check_every=check_every, pre=pre, post=post,

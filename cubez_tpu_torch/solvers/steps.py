@@ -3,13 +3,17 @@
 
 The name registry is the JAX package's, verbatim (solver-name parity with
 the reference CLI, cz_Evaluate.cpp:684-803).  This port runs ``sor2sma``,
-``jacobi`` and their ``_maf`` forms; every other solver raises
-``NotImplementedError`` naming the slice of ROADMAP.md that brings it.
+``jacobi``, the line solvers of kinds ``pcr_rb`` (``pcr_rb``,
+``pcr_rb_esa``) and ``pcr`` (``pcr_j_esa``), and their ``_maf`` forms;
+every other solver raises ``NotImplementedError`` naming the slice of
+ROADMAP.md that brings it.
 """
 
 from __future__ import annotations
 
 from ..core.problem import Problem
+from ..cuda_kernels import lines
+from ..cuda_kernels.rbpack import maf_tables
 from ..ops import maf as maf_ops
 from ..ops import stencil
 
@@ -39,8 +43,6 @@ EXTENSION_SOLVERS = ("mg", "mg_maf", "fmg", "fmg_maf", "fd", "fd_maf", "cg")
 _SLICE = {
     "pbicgstab": "slice 4 (Krylov)",
     "cg": "slice 4 (Krylov)",
-    "pcr": "slice 5 (line solvers)",
-    "pcr_rb": "slice 5 (line solvers)",
     "psor": "slice 6 (exact serial orders)",
     "pcr_gs": "slice 6 (exact serial orders)",
     "mg": "slice 7 (extensions)",
@@ -67,7 +69,7 @@ def parse_name(name: str):
     return _CANON[base], is_maf
 
 
-PORTED = ("sor2sma", "jacobi")
+PORTED = ("sor2sma", "jacobi", "pcr", "pcr_rb")
 
 
 def require_ported(name: str):
@@ -96,13 +98,25 @@ def maf_coeffs(problem: Problem, name: str):
 
 def make_step(problem: Problem, name: str, omega: float):
     """``step(x, b) -> (x_new, r2)`` on the unpacked (K, I, J) layout: the
-    plain masked sweep of ops/stencil.py or ops/maf.py.  It carries the
-    problem's own mask, so it also serves masks other than the standard
-    one."""
+    plain masked sweep of ops/stencil.py or ops/maf.py, or the line twins
+    of cuda_kernels/lines.py with the mask.  It carries the problem's own
+    mask, so it also serves masks other than the standard one; x is never
+    written."""
     kind, _ = require_ported(name)
     mc = maf_coeffs(problem, name)
     g = problem.grid
     msk = problem.msk
+    if kind == "pcr":
+        tab = maf_tables(mc, g.shape_kij, g.dtype)
+        return lambda x, b: lines.line_j_plain(x, b, omega, tab, msk)
+    if kind == "pcr_rb":
+        tab = maf_tables(mc, g.shape_kij, g.dtype)
+
+        def pcr_rb_step(x, b):
+            x = x.clone()
+            return x, lines.line_rb_plain(x, b, omega, 0, tab, msk)
+
+        return pcr_rb_step
     if kind == "jacobi":
         if mc is not None:
             return lambda x, b: maf_ops.jacobi_maf_sweep(x, b, msk, omega, mc)

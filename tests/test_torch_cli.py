@@ -62,8 +62,8 @@ def test_cli_later_slices_raise(extra, where, tmp_path, monkeypatch):
 
 def test_cli_unported_solver_raises(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        main(["8", "8", "8", "pcr_rb", "10", "1.5", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        main(["8", "8", "8", "psor", "10", "1.5", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("solver,omega,iters", [
@@ -77,3 +77,33 @@ def test_cli_maf_32_on_cpu(solver, omega, iters, tmp_path, monkeypatch, capsys):
                  "--device", "cpu"]) == 0
     assert f"Iter = {iters}  Res = " in capsys.readouterr().out
     assert len((tmp_path / f"{solver}.txt").read_text().splitlines()) == iters + 1
+
+
+def test_cli_pcr_rb_history_matches_jax_cli(tmp_path, monkeypatch, capsys):
+    """pcr_rb through both CLIs at 16^3 on the CPU: the same count, the
+    same history format (header, one ``%6d, %13.6e`` row per iteration)
+    and residual curves within the f32 band, rtol 1e-3 (the JAX package
+    sums dp^2 in float32 and solves by PCR, the port folds in float64
+    and solves by Thomas)."""
+    from cubez_tpu.cli import main as j_main
+
+    argv = ["16", "16", "16", "pcr_rb", "10000", "1.5"]
+    files = {}
+    for name, run in (("torch", lambda: main(argv + ["--device", "cpu"])),
+                      ("jax", lambda: j_main(argv))):
+        d = tmp_path / name
+        d.mkdir()
+        monkeypatch.chdir(d)
+        assert run() in (0, None)
+        out = capsys.readouterr().out
+        assert "Iterative Method = pcr_rb" in out and "Error max = " in out
+        files[name] = (d / "pcr_rb.txt").read_text().splitlines()
+    t, j = files["torch"], files["jax"]
+    assert t[0] == j[0] == "Itration      Residual"
+    assert len(t) == len(j) > 10
+    for rows in (t, j):
+        for i, row in enumerate(rows[1:], start=1):
+            assert row == "%6d, %13.6e" % (i, float(row.split(",")[1]))
+    tv = [float(r.split(",")[1]) for r in t[1:]]
+    jv = [float(r.split(",")[1]) for r in j[1:]]
+    assert max(abs(a / b - 1) for a, b in zip(tv, jv)) < 1e-3

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 import cubez_tpu_torch as czt
+from cubez_tpu_torch.cuda_kernels import lines as k6
+from cubez_tpu_torch.cuda_kernels import rblines as k5
 from cubez_tpu_torch.cuda_kernels import rbpack as rb
 from cubez_tpu_torch.cuda_kernels import sweeps as k4
 
@@ -28,7 +30,8 @@ def dev():
     return torch.device("cuda", 0)
 
 
-WRAPPERS = (rb.rb_color, rb.rb_sweeps_n, k4.jacobi_k4, k4.sor2sma_k4)
+WRAPPERS = (rb.rb_color, rb.rb_sweeps_n, k4.jacobi_k4, k4.sor2sma_k4,
+            k5.rbl, k6.line_j, k6.line_rb)
 
 
 def _launches():
@@ -126,7 +129,7 @@ def test_odd_i_on_cuda_launches_k4(dev):
     assert torch.equal(r.x, p.x)
 
 
-@pytest.mark.parametrize("name", ["sor2sma", "jacobi"])
+@pytest.mark.parametrize("name", ["sor2sma", "jacobi", "pcr_rb", "pcr_j_esa"])
 def test_non_standard_mask_on_cuda_raises(dev, name):
     """No kernel takes a mask other than the standard one, so 'auto'
     refuses it on the card; 'plain' runs the plain sweep there."""
@@ -200,3 +203,108 @@ def test_jacobi_step_alternates_two_buffers(dev):
     xk, _ = step(snap, None)
     xp, _ = twin(xp, None)
     assert torch.equal(xk, xp) and xk.data_ptr() != snap.data_ptr()
+
+
+def _line_builders(mc):
+    """(label, build(shape, dtype, offset, plain)) for every line step;
+    None where a layout refuses (K5 at odd I)."""
+    for bz in (True, False):
+        yield f"K5 b={not bz}", lambda sh, dt, off, pl, bz=bz: k5.make_rbl_step(
+            sh, dt, omega=OMEGA, offset=off, b_is_zero=bz, mc=mc, plain=pl)
+        for kind in k6.KINDS:
+            yield f"K6 {kind} b={not bz}", (
+                lambda sh, dt, off, pl, kind=kind, bz=bz: k6.make_line_step(
+                    kind, sh, dt, omega=1.0 if kind == "pcr_j" else OMEGA,
+                    offset=off, b_is_zero=bz, mc=mc, plain=pl))
+
+
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (13, 10, 17), (13, 11, 16)])
+def test_line_kernels_match_plain_twins(dev, shape, dtype, offset, maf):
+    """K5 and K6 against their twins on the card: float32 fields bitwise,
+    float64 within 1e-14, residuals to rtol 1e-5 (block partials group
+    the sum differently).  MAF on the stretched grid's coefficients; odd I
+    has no K5 step."""
+    mc = None
+    if maf:
+        K, I, J = shape
+        mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                                device=dev)[0].mc
+    gen = torch.Generator().manual_seed(5 + offset)
+    x = torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1
+    b = torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1
+    tol = 0.0 if dtype == torch.float32 else 1e-14
+    n_steps = 0
+    for label, build in _line_builders(mc):
+        kstep = build(shape, dtype, offset, False)
+        pstep = build(shape, dtype, offset, True)
+        if kstep is None:
+            continue
+        x0, b0 = kstep.pad(x.to(dev)), kstep.pad(b.to(dev))
+        xk, xp = x0.clone(), x0.clone()
+        before = _launches()
+        for _ in range(3):
+            xk, rk = kstep(xk, b0)
+            xp, rp = pstep(xp, b0)
+        torch.cuda.synchronize()
+        assert _launches() > before, label
+        assert float((xk - xp).abs().max()) <= tol, label
+        torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+        n_steps += 1
+    assert n_steps == (4 if shape[1] % 2 else 6)
+
+
+@pytest.mark.parametrize("name,omega,iters", [
+    ("pcr_rb", OMEGA, 140), ("pcr_rb_maf", OMEGA, 140),
+    ("pcr_j_esa", 1.0, 624), ("pcr_rb", OMEGA, None),
+])
+def test_line_solves_on_cuda_match_cpu_twin(dev, name, omega, iters):
+    """The line solvers at 32^3 (and pcr_rb at odd I, (31, 32, 32), on
+    K6's red-black form): the oracle's counts, the CPU twin's field bit
+    for bit, and the launches of the kernel the dispatch picks."""
+    n = 32 if iters else (31, 32, 32)
+    maf = name.endswith("_maf")
+    g = czt.Problem.poisson_cube(n, device=dev, maf=maf)
+    c = czt.Problem.poisson_cube(n, device="cpu", maf=maf)
+    wrapper = {"pcr_j_esa": k6.line_j}.get(name, k5.rbl if iters else k6.line_rb)
+    before = (wrapper.launches, wrapper.maf_launches)
+    rg = czt.solve(g, name, omega=omega, itr_max=10000)
+    rc = czt.solve(c, name, omega=omega, itr_max=10000)
+    assert rg.iters == rc.iters and (iters is None or rg.iters == iters)
+    assert torch.equal(rg.x.cpu(), rc.x)
+    assert wrapper.launches > before[0]
+    assert (wrapper.maf_launches > before[1]) == maf
+
+
+def test_line_jacobi_step_alternates_two_buffers(dev):
+    """K6's pcr_j step writes one of its two buffers, never the field it
+    is handed, and its fields equal the plain twin's step by step."""
+    shape = (12, 13, 14)
+    mc = czt.Problem.poisson_cube((13, 14, 12), device=dev, maf=True).mc
+    for m in (None, mc):
+        step = k6.make_line_step("pcr_j", shape, omega=1.0, mc=m)
+        twin = k6.make_line_step("pcr_j", shape, omega=1.0, mc=m, plain=True)
+        x0 = torch.rand(shape, device=dev)
+        keep = x0.clone()
+        xk, xp, ptrs = x0, x0.clone(), []
+        for _ in range(4):
+            xk, _ = step(xk, None)
+            xp, _ = twin(xp, None)
+            ptrs.append(xk.data_ptr())
+            assert torch.equal(xk, xp)
+        assert torch.equal(x0, keep)
+        assert ptrs[0] == ptrs[2] != ptrs[1] == ptrs[3] != x0.data_ptr()
+
+
+def test_line_solver_without_two_inner_k_raises_on_cuda(dev):
+    """K - 2 < 2 has no line kernel step: 'auto' refuses it on the card,
+    'plain' runs the plain line sweep there."""
+    prob = czt.Problem.poisson_cube((8, 8, 3), device=dev)
+    with pytest.raises(NotImplementedError, match="K - 2 >= 2"):
+        czt.solve(prob, "pcr_rb", omega=OMEGA, itr_max=5)
+    r = czt.solve(prob, "pcr_rb", omega=OMEGA, itr_max=5, impl="plain")
+    assert r.x.is_cuda
+    with pytest.raises(ValueError, match="K - 2 >= 2"):
+        k6.line_rb(torch.zeros(3, 8, 8, device=dev), None, OMEGA)

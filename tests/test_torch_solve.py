@@ -165,7 +165,7 @@ def test_write_history_byte_identical(tmp_path):
 
 @pytest.mark.parametrize("name,where", [
     ("psor", "slice 6"), ("pcr", "slice 6"),
-    ("pcr_rb", "slice 5"), ("pcr_j_esa", "slice 5"),
+    ("pcr_esa_maf", "slice 6"), ("psor_maf", "slice 6"),
     ("pbicgstab", "slice 4"), ("cg", "slice 4"),
     ("mg", "slice 7"), ("fd", "slice 7"),
 ])
@@ -213,7 +213,9 @@ def test_import_pulls_in_no_jax():
         "import sys; import cubez_tpu_torch, cubez_tpu_torch.cli, "
         "cubez_tpu_torch.cuda_kernels.rbpack, cubez_tpu_torch.solvers.api, "
         "cubez_tpu_torch.cuda_kernels.sweeps, cubez_tpu_torch.ops.maf, "
-        "cubez_tpu_torch.cuda_kernels._build; "
+        "cubez_tpu_torch.cuda_kernels._build, "
+        "cubez_tpu_torch.cuda_kernels.lines, "
+        "cubez_tpu_torch.cuda_kernels.rblines; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'cubez_tpu.')) or m == 'cubez_tpu']; "
         "assert not bad, bad"
