@@ -56,15 +56,35 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
 11. the CLI in subprocesses, ``124 124 124 sor2sma 10000 1.5``, ``... jacobi
     10000 0.8``, ``... sor2sma_maf 10000 1.5`` and ``... pcr_rb 10000 1.5``
     (pcr_rb's count to the JAX package's CLI's +-2%, its Error max at rtol
-    1e-2);
+    1e-2), and ``124 124 124 sor2sma 10000 1.5 2 2 2`` (solve_dist over a
+    (2, 2, 2) mesh on the card), which must give the serial CLI's count;
 12. times each step and its plain twin at 128^3 and 512^3 (sor2sma on the
     n = 6 chain, jacobi on K4, sor2sma_maf on the MAF pair, the MAF chain
     at n = 6, pcr_rb on K5, pcr_rb_maf on K5-MAF, pcr_j_esa on K6; CUDA
     events, distinct random starts, long-minus-short differencing), and
-    every kernel per call against its twin at 128^3.
+    every kernel per call against its twin at 128^3;
+13. the distributed kernels against their twins, one block at a time at
+    nonzero offsets: K7 (dist_rb_sweeps) on the (2, 2, 2) blocks of 128^3
+    at n = 2, 6 and the one-iteration form n = 1 on the depth-12 ring,
+    K7-MAF at n = 2 and 3, K8 (block_sweep) in every variant with and
+    without b, and a (2, 1, 1) mesh ragged in J; float32 bitwise, float64
+    within 1e-14, residuals to rtol 1e-5;
+14. solve_dist with eight blocks on the card (``make_mesh(..., devices=
+    ["cuda:0"] * 8)``), each path with the counts zeroed just before and
+    read just after: at 128^3 f32 sor2sma pack (the serial count exactly,
+    history to rtol 1e-5, the field at the stop bit for bit), sor2sma_maf
+    pack (the same), sor2sma 'color' (the serial count), jacobi at omega
+    0.8 (the serial count), 'overlap' (the 'color' field bit for bit), 60
+    fixed sweeps of 'iter' against its twin (bitwise); 512^3 f32 sor2sma
+    pack (the serial 512^3 count and field);
+15. times the distributed steps per iteration at 128^3 and 512^3 over
+    (2, 2, 2) (pack and 'color') beside the serial n = 6 chain, and K7 and
+    K8 per call at 128^3's blocks against their twins.
 
 The line before the last is a JSON object with one entry per kernel
-variant; the last is ``{"ok": true, "device": {...}}``.
+variant (its bound: the larger of the bytes it must move over 3.35 TB/s
+and its operations over 67 TFLOP/s, float32 outside the tensor cores); the
+last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -98,6 +118,16 @@ OMEGA_J = 0.8
 OMEGA_L = 1.0  # pcr_j_esa: line-Jacobi diverges above about 1.0
 SEED = 20261016
 RAGGED = (37, 22, 45)  # (K, I, J)
+# the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
+HBM_BYTES_S = 3.35e12
+F32_FLOPS_S = 67e12
+
+
+def bound(nbytes, flops):
+    """(ms, what bounds it): the least time for ``nbytes`` moved and
+    ``flops`` done at the card's peaks."""
+    tb, tf = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
 def check(cond, msg):
@@ -125,12 +155,16 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     sys.path.insert(0, str(ROOT))
-    from cubez_tpu_torch import Grid, Problem, max_error_loc, solve
+    from cubez_tpu_torch import (Grid, Problem, make_mesh, max_error_loc, solve,
+                                 solve_dist)
     from cubez_tpu_torch.cuda_kernels import _build
+    from cubez_tpu_torch.cuda_kernels import dist_rbpack as k7
+    from cubez_tpu_torch.cuda_kernels import dist_sweeps as k8
     from cubez_tpu_torch.cuda_kernels import lines as k6
     from cubez_tpu_torch.cuda_kernels import rblines as k5
     from cubez_tpu_torch.cuda_kernels import rbpack as rb
     from cubez_tpu_torch.cuda_kernels import sweeps as k4
+    from cubez_tpu_torch.parallel import dist_fused, dist_pack
     from cubez_tpu_torch.solvers.driver import fixed_sweeps
     from cubez_tpu_torch.solvers.fused_cache import get_fused_step
 
@@ -143,17 +177,23 @@ def main():
     # kernel variant is a wrapper's constant or MAF form
     wrappers = {"rb_color": rb.rb_color, "rb_sweeps_n": rb.rb_sweeps_n,
                 "k4_jacobi": k4.jacobi_k4, "k4_rb_color": k4.sor2sma_k4,
-                "rbl": k5.rbl, "line_j": k6.line_j, "line_rb": k6.line_rb}
+                "rbl": k5.rbl, "line_j": k6.line_j, "line_rb": k6.line_rb,
+                "dist_rb_sweeps": k7.dist_rb_sweeps}
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = w.maf_launches = 0
+        # K8 counts its launches by variant too
+        k8.block_sweep.launches = 0
+        k8.block_sweep.variant_launches = {}
 
     def read_counts():
         out = {}
         for name, w in wrappers.items():
             out[name] = w.launches - w.maf_launches
             out[name + "_maf"] = w.maf_launches
+        for v in ("jacobi", "colour", "both", "interior", "shell"):
+            out["block_sweep_" + v] = k8.block_sweep.variant_launches.get(v, 0)
         return out
 
     path_launches = {}  # variant -> launches in the first path that runs it
@@ -345,6 +385,8 @@ def main():
           f"512^3: {res512.iters} iterations vs the f64 oracle's 5781")
     print(f"512^3 f32: {res512.iters} iterations (f64 oracle 5781), "
           f"res {res512.res:e}, wall {wall512:.3f} s {tag}", flush=True)
+    # phase 14 holds the distributed 512^3 solve to this count and field
+    iters512, x512 = res512.iters, res512.x
     del prob512, res512
 
     # ---- 7. the slice-2 paths at 128^3 f32 -------------------------------------
@@ -547,32 +589,38 @@ def main():
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p]
     )
-    runs = (("sor2sma", "1.5"), ("jacobi", "0.8"), ("sor2sma_maf", "1.5"),
-            ("pcr_rb", "1.5"))
+    # (directory, solver, omega, process division); the last is solve_dist
+    runs = (("sor2sma", "sor2sma", "1.5", ()), ("jacobi", "jacobi", "0.8", ()),
+            ("sor2sma_maf", "sor2sma_maf", "1.5", ()),
+            ("pcr_rb", "pcr_rb", "1.5", ()),
+            ("sor2sma_dist", "sor2sma", "1.5", ("2", "2", "2")))
+    cli_iters = {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
-        for solver, omega in runs:
-            d = Path(tmp) / solver
+        for label, solver, omega, gdv in runs:
+            d = Path(tmp) / label
             d.mkdir()
-            procs.append((solver, d, subprocess.Popen(
+            procs.append((label, solver, d, subprocess.Popen(
                 [sys.executable, "-m", "cubez_tpu_torch.cli", "124", "124",
-                 "124", solver, "10000", omega],
+                 "124", solver, "10000", omega, *gdv],
                 cwd=d, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True,
             )))
-        for solver, d, proc in procs:
+        for label, solver, d, proc in procs:
             out, errs_ = proc.communicate(timeout=300)
             check(proc.returncode == 0,
-                  f"CLI {solver} exited {proc.returncode}:\n{errs_}")
+                  f"CLI {label} exited {proc.returncode}:\n{errs_}")
             hist_file = d / f"{solver}.txt"
             check(hist_file.exists(), f"CLI wrote no {solver}.txt")
             check(hist_file.read_text().startswith("Itration      Residual\n"),
-                  f"CLI {solver} history header")
-            check("Error max" in out, f"CLI {solver} printed no Error max")
+                  f"CLI {label} history header")
+            check("Error max" in out, f"CLI {label} printed no Error max")
             for ln in out.splitlines():
-                if ln.startswith(("Iter =", "wall =", "Error max")):
-                    print(f"CLI 124^3 {solver}: {ln.strip()}")
-                if solver not in JAX_CLI_124:
+                if ln.startswith(("Iter =", "wall =", "Error max", "mesh")):
+                    print(f"CLI 124^3 {label}: {ln.strip()}")
+                if ln.startswith("Iter ="):
+                    cli_iters[label] = int(ln.split()[2])
+                if solver not in JAX_CLI_124 or label != solver:
                     continue
                 its, err_j = JAX_CLI_124[solver]
                 if ln.startswith("Iter ="):
@@ -583,6 +631,12 @@ def main():
                     e = float(ln.split()[3])
                     check(abs(e / err_j - 1) <= ERR_RTOL,
                           f"CLI {solver}: Error max {e} vs the JAX CLI's {err_j}")
+            if label == "sor2sma_dist":
+                check("mesh division (z,x,y) = (2, 2, 2) on 1 device(s)" in out,
+                      "CLI sor2sma_dist: no (2, 2, 2) mesh")
+    check(cli_iters["sor2sma_dist"] == cli_iters["sor2sma"],
+          f"CLI 124^3: solve_dist {cli_iters['sor2sma_dist']} iterations, "
+          f"serial {cli_iters['sor2sma']}")
 
     # ---- 12. timing ------------------------------------------------------------
     stamp(12)
@@ -717,13 +771,325 @@ def main():
     check(all(bool(torch.isfinite(t).all()) for t in (xs, xu, xl, out)),
           "timing fields not finite")
 
+    # the least work of each call above: (bytes that must move, each input
+    # read once and each output written once; operations), float32 at
+    # 128^3.  Operations per updated point: a constant-coefficient update
+    # 11 (five adds, the fma, the omega product, the centre add, dp^2 and
+    # its sum), MAF 20 (six weighted terms, dd, the division), a line
+    # relaxation 14 (the right-hand side, the Thomas sweeps with
+    # precomputed factors, the update), its MAF form 24.
+    fb = 4 * 128**3  # one float32 field
+    inner = 126**3
+    work = {
+        "rb_color": (1.5 * fb, 11 * inner / 2),
+        "rb_color_maf": (1.5 * fb, 20 * inner / 2),
+        "rb_sweeps_n": (2 * fb, 6 * 11 * inner),
+        "rb_sweeps_n_maf": (3 * fb, 2 * 21 * inner),
+        "rb_sweeps_n_maf_chain": (2 * fb, 6 * 20 * inner),
+        "k4_jacobi": (2 * fb, 11 * inner),
+        "k4_jacobi_maf": (2 * fb, 20 * inner),
+        "k4_rb_color": (2 * fb, 11 * inner),
+        "k4_rb_color_maf": (2 * fb, 20 * inner),
+        "rbl": (2 * fb, 14 * inner),
+        "rbl_maf": (2 * fb, 24 * inner),
+        "line_j": (2 * fb, 14 * inner),
+        "line_j_maf": (2 * fb, 24 * inner),
+        "line_rb": (2 * fb, 14 * inner),
+        "line_rb_maf": (2 * fb, 24 * inner),
+    }
+    del xs, bs, xu, xl, out, gu, eu, gl, el
+
+    # ---- 13. the distributed kernels vs their twins ----------------------------
+    stamp(13)
+    # (global shape for K7, for K8, division, block coordinates to check);
+    # the second mesh splits K only and is ragged in J (K7 needs even
+    # blocks, K8 takes an odd J)
+    dist_cases = (((128, 128, 128), (128, 128, 128), (2, 2, 2),
+                   ((1, 1, 1), (0, 1, 0))),
+                  ((64, 48, 46), (64, 48, 45), (2, 1, 1), ((1, 0, 0),)))
+    # (n, ring depth, MAF): the window chain, its one-iteration form on the
+    # depth-12 ring, the MAF chain at the JAX package's MAF depths
+    k7_cases = ((2, 4, False), (6, 12, False), (1, 12, False), (2, 4, True),
+                (3, 6, True))
+    k8_variants = (("jacobi", None, "all"), ("sor2sma", 0, "all"),
+                   ("sor2sma", 1, "all"), ("sor2sma", None, "all"),
+                   ("sor2sma", 0, "interior"), ("sor2sma", 1, "interior"),
+                   ("sor2sma", 0, "shell"), ("sor2sma", 1, "shell"))
+    n_cmp = 0
+    for gsz, kg, div, coords in dist_cases:
+        bsz = tuple(g // d for g, d in zip(gsz, div))
+        kb = tuple(g // d for g, d in zip(kg, div))
+        split = tuple(d > 1 for d in div)
+        for dtype in (f32, f64):
+            tol = 0.0 if dtype == f32 else 1e-14
+            mc = stretched_mc(gsz, dtype)
+            for c in coords:
+                origin = tuple(a * b for a, b in zip(c, bsz))
+                for n, h, maf in k7_cases:
+                    kw = dict(omega=OMEGA, n=n, h=h, split=split,
+                              mc=mc if maf else None)
+                    ks = k7.make_dist_packed_sweepnx(bsz, gsz, dtype, **kw)
+                    ps = k7.make_dist_packed_sweepnx(bsz, gsz, dtype, plain=True,
+                                                     **kw)
+                    tab = ks.block_tables(origin, dev) if maf else None
+                    Ke, _, Je, I2e = k7.ext_dims(bsz, ks.hs)
+                    x = rand((2, Ke, I2e, Je), dtype).to(dev)
+                    xk, xp = x.clone(), x.clone()
+                    rk, rp = ks(xk, origin, tab), ps(xp, origin, tab)
+                    sync()
+                    name = "dist_rb_sweeps" + ("_maf" if maf else "")
+                    e = float((xk - xp).abs().max())
+                    err[name] = max(err.get(name, 0.0), e)
+                    rel = float(((rk - rp).abs() / rp.abs()).max())
+                    where = f"K7 n={n} h={h} maf={maf} {gsz} {div} {c} {dtype}"
+                    check(torch.isfinite(xk).all(), f"non-finite field: {where}")
+                    check(e <= tol, f"field differs by {e}: {where}")
+                    check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
+                    n_cmp += 1
+                # K8 on the ghosted block
+                geom = (*(a * b for a, b in zip(c, kb)), *kg, 1)
+                x = rand(k8.block_layout(kb), dtype).to(dev)
+                b = rand(x.shape, dtype).to(dev)
+                for kind, colour, region in k8_variants:
+                    for bb in (None, b):
+                        xk, rk = k8.block_sweep(x.clone(), bb, kind, colour,
+                                                OMEGA, geom, region)
+                        xp, rp = k8.block_sweep_plain(x.clone(), bb, kind, colour,
+                                                      OMEGA, geom, region)
+                        sync()
+                        name = "block_sweep_" + k8.variant(kind, colour, region)
+                        e = float((xk - xp).abs().max())
+                        err[name] = max(err.get(name, 0.0), e)
+                        rel = float((rk - rp).abs() / rp.abs())
+                        where = (f"K8 {kind} {colour} {region} b={bb is not None}"
+                                 f" {kg} {c} {dtype}")
+                        check(e <= tol, f"field differs by {e}: {where}")
+                        check(rel <= 1e-5, f"residual differs by rtol {rel}: "
+                              f"{where}")
+                        n_cmp += 1
+    print(f"distributed kernels vs plain twins: {n_cmp} comparisons passed "
+          f"(f32 bitwise, f64 <= 1e-14); max |field diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(err.items())
+                      if k.startswith(("dist", "block"))), flush=True)
+
+    # ---- 14. solve_dist on the card --------------------------------------------
+    stamp(14)
+    cm128 = make_mesh((128, 128, 128), devices=[dev] * 8, div=(2, 2, 2))
+
+    def drive_dist(name, omega, p, cm, sync_mode, variants):
+        """solve_dist with the counts zeroed just before and read just
+        after; every kernel variant of the path must have launched."""
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        r = solve_dist(p, cm, name, omega=omega, itr_max=20000, sync=sync_mode)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        for v in variants:
+            check(counts[v] > 0, f"solve_dist {name} {sync_mode}: {v} idle")
+            path_launches.setdefault(v, counts[v])
+        check(bool(torch.isfinite(r.x).all()), f"solve_dist {name}: not finite")
+        return r, wall, {v: counts[v] for v in variants}
+
+    def hist_rtol(a, b):
+        return float(((a.history - b.history) / b.history).abs().max())
+
+    dist_tag = "(2, 2, 2), 8 blocks on the card"
+    for name, variant in (("sor2sma", "dist_rb_sweeps"),
+                          ("sor2sma_maf", "dist_rb_sweeps_maf")):
+        p = Problem.poisson_cube(128, device=dev, maf=name.endswith("_maf"))
+        s_ = solve(p, name, omega=OMEGA, itr_max=10000)
+        r, wall, cnt = drive_dist(name, OMEGA, p, cm128, "pack", (variant,))
+        worst = hist_rtol(r, s_)
+        check(r.iters == s_.iters, f"{name} pack: {r.iters} vs serial {s_.iters}")
+        check(worst <= 1e-5, f"{name} pack: history rtol {worst}")
+        check(torch.equal(r.x, s_.x), f"{name} pack: field != the serial one")
+        print(f"solve_dist {name} 128^3 f32 pack {dist_tag}: {r.iters} "
+              f"iterations (serial {s_.iters}), history rtol {worst:.2e}, field "
+              f"bitwise the serial one, wall {wall:.3f} s, launches {cnt} {tag}",
+              flush=True)
+    p = Problem.poisson_cube(128, device=dev)
+    s_ = solve(p, "sor2sma", omega=OMEGA, itr_max=10000)
+    rc, wall, cnt = drive_dist("sor2sma", OMEGA, p, cm128, "color",
+                               ("block_sweep_colour",))
+    check(rc.iters == s_.iters, f"color: {rc.iters} vs serial {s_.iters}")
+    print(f"solve_dist sor2sma 128^3 f32 color {dist_tag}: {rc.iters} "
+          f"iterations (serial {s_.iters}), history rtol {hist_rtol(rc, s_):.2e},"
+          f" max |x - serial| {float((rc.x - s_.x).abs().max()):.3e}, wall "
+          f"{wall:.3f} s, launches {cnt} {tag}", flush=True)
+    ro, wall, cnt = drive_dist("sor2sma", OMEGA, p, cm128, "overlap",
+                               ("block_sweep_interior", "block_sweep_shell"))
+    check(abs(ro.iters - rc.iters) <= 1, f"overlap: {ro.iters} vs {rc.iters}")
+    same = ro.iters == rc.iters
+    check(not same or torch.equal(ro.x, rc.x), "overlap: field != color's")
+    print(f"solve_dist sor2sma 128^3 f32 overlap {dist_tag}: {ro.iters} "
+          f"iterations (color {rc.iters}), field "
+          f"{'bitwise the color one' if same else 'not compared'}, wall "
+          f"{wall:.3f} s, launches {cnt} {tag}", flush=True)
+    sj = solve(p, "jacobi", omega=OMEGA_J, itr_max=10000)
+    rj, wall, cnt = drive_dist("jacobi", OMEGA_J, p, cm128, "auto",
+                               ("block_sweep_jacobi",))
+    check(rj.iters == sj.iters, f"jacobi: {rj.iters} vs serial {sj.iters}")
+    print(f"solve_dist jacobi 128^3 f32 omega {OMEGA_J} {dist_tag}: {rj.iters} "
+          f"iterations (serial {sj.iters}), history rtol {hist_rtol(rj, sj):.2e},"
+          f" wall {wall:.3f} s, launches {cnt} {tag}", flush=True)
+    del rc, ro, rj, s_, sj
+    # sync='iter' (unstable at omega 1.5 to tolerance on small blocks):
+    # fixed sweeps against its twin
+    it_k = dist_fused.make_dist_fused_step(p, cm128, "sor2sma", OMEGA,
+                                           b_is_zero=True, sync="iter")
+    it_p = dist_fused.make_dist_fused_step(p, cm128, "sor2sma", OMEGA,
+                                           b_is_zero=True, sync="iter", plain=True)
+    sync()
+    zero_counts()
+    xk = fixed_sweeps(it_k, dist_fused.to_block_state(cm128, p.x0), None, 60)
+    sync()
+    path_launches["block_sweep_both"] = read_counts()["block_sweep_both"]
+    check(path_launches["block_sweep_both"] == 480,
+          f"iter: {path_launches['block_sweep_both']} launches")
+    xp = fixed_sweeps(it_p, dist_fused.to_block_state(cm128, p.x0), None, 60)
+    check(all(torch.equal(a, b) for a, b in zip(xk, xp)), "iter: != twin")
+    print(f"solve_dist sor2sma 128^3 f32 iter {dist_tag}: 60 fixed sweeps in "
+          f"480 launches, bitwise the twin {tag}", flush=True)
+    del xk, xp, p
+
+    p512 = Problem.poisson_cube(512, device=dev)
+    cm512 = make_mesh((512, 512, 512), devices=[dev] * 8, div=(2, 2, 2))
+    r, wall, cnt = drive_dist("sor2sma", OMEGA, p512, cm512, "pack",
+                              ("dist_rb_sweeps",))
+    check(r.iters == iters512, f"512^3 pack: {r.iters} vs serial {iters512}")
+    check(torch.equal(r.x, x512), "512^3 pack: field != the serial one")
+    print(f"solve_dist sor2sma 512^3 f32 pack {dist_tag}: {r.iters} iterations "
+          f"(serial {iters512}, f64 oracle 5781), field bitwise the serial one, "
+          f"wall {wall:.3f} s, launches {cnt} {tag}", flush=True)
+    del r, p512, x512
+
+    # ---- 15. distributed timing --------------------------------------------------
+    stamp(15)
+
+    def per_iter_ms_state(step, to_state, shape, short, long, reps=3):
+        """Long-minus-short ms per iteration over distinct random starts,
+        for a step on any state layout (a block list too)."""
+        starts = [to_state(torch.rand(shape, device=dev, generator=dgen))
+                  for _ in range(reps + 1)]
+
+        def clone(s):
+            return [t.clone() for t in s] if isinstance(s, list) else s.clone()
+
+        fixed_sweeps(step, starts[-1], None, short)  # warm-up
+        med = {}
+        for count in (short, long, long, short):
+            ts = []
+            for s in starts[:reps]:
+                x = clone(s)
+                ts.append(events_ms(lambda: fixed_sweeps(step, x, None, count), 1))
+            med.setdefault(count, []).append(statistics.median(ts))
+        return (min(med[long]) - min(med[short])) / (long - short)
+
+    dist_timing = {}
+    for n, counts in ((128, {"serial": (60, 600), "pack": (60, 600),
+                             "color": (20, 200)}),
+                      (512, {"serial": (12, 72), "pack": (12, 72),
+                             "color": (6, 36)})):
+        p = Problem.poisson_cube(n, device=dev)
+        cm = make_mesh((n, n, n), devices=[dev] * 8, div=(2, 2, 2))
+        ser = get_fused_step("sor2sma", p.grid, OMEGA, b_is_zero=True)
+        pk = dist_pack.make_dist_packed_step(p, cm, OMEGA)
+        co = dist_fused.make_dist_fused_step(p, cm, "sor2sma", OMEGA,
+                                             b_is_zero=True)
+        for label, step, to_state in (
+                ("serial", ser, ser.pad),
+                ("pack", pk, lambda a: dist_pack.to_packed_state(cm, a, pk.hs)),
+                ("color", co, lambda a: dist_fused.to_block_state(cm, a))):
+            ms = per_iter_ms_state(step, to_state, p.grid.shape_kij, *counts[label])
+            check(ms > 0, f"dist timing {label} {n}^3: non-positive")
+            dist_timing[(label, n)] = ms
+            print(f"timing dist {label} {n}^3 f32 (n={step.iters_per_call} per "
+                  f"call{'' if label == 'serial' else ', (2, 2, 2) on the card'}"
+                  f"): {ms * 1e3:.3f} us/iteration, "
+                  f"{p.grid.num_inner / (ms * 1e-3) / 1e6:.1f} Mcell-updates/s "
+                  f"{tag}", flush=True)
+        del p, cm, ser, pk, co
+
+    # K7 and K8 per call on 128^3's (2, 2, 2) blocks (64^3 owned, origin
+    # (64, 64, 64)), each against its twin in turns
+    bsz, gsz, origin = (64, 64, 64), (128, 128, 128), (64, 64, 64)
+    mc = Problem.poisson_cube(128, device=dev, maf=True).mc
+    k7c = k7.make_dist_packed_sweepnx(bsz, gsz, omega=OMEGA, n=6)
+    k7p = k7.make_dist_packed_sweepnx(bsz, gsz, omega=OMEGA, n=6, plain=True)
+    k7m = k7.make_dist_packed_sweepnx(bsz, gsz, omega=OMEGA, n=2, mc=mc)
+    k7mp = k7.make_dist_packed_sweepnx(bsz, gsz, omega=OMEGA, n=2, mc=mc,
+                                       plain=True)
+    tab7 = k7m.block_tables(origin, dev)
+    e7, e7m = k7.ext_dims(bsz, k7c.hs), k7.ext_dims(bsz, k7m.hs)
+    x7 = rand((2, e7[0], e7[3], e7[2]), f32).to(dev)
+    x7m = rand((2, e7m[0], e7m[3], e7m[2]), f32).to(dev)
+    x8 = rand(k8.block_layout(bsz), f32).to(dev)
+    o8 = torch.empty_like(x8)
+    geom8 = (*origin, *gsz, 0)
+
+    def k8call(kind, colour, region, plain):
+        if plain:
+            return lambda: k8.block_sweep_plain(x8, None, kind, colour, OMEGA,
+                                                geom8, region)
+        return lambda: k8.block_sweep(x8, None, kind, colour, OMEGA, geom8,
+                                      region, out=o8 if kind == "jacobi" else None)
+
+    dcalls = {
+        "dist_rb_sweeps": (lambda: k7c(x7, origin), lambda: k7p(x7, origin)),
+        "dist_rb_sweeps_maf": (lambda: k7m(x7m, origin, tab7),
+                               lambda: k7mp(x7m, origin, tab7)),
+    }
+    for kind, colour, region in (("jacobi", None, "all"), ("sor2sma", 0, "all"),
+                                 ("sor2sma", None, "all"),
+                                 ("sor2sma", 0, "interior"),
+                                 ("sor2sma", 0, "shell")):
+        dcalls["block_sweep_" + k8.variant(kind, colour, region)] = (
+            k8call(kind, colour, region, False), k8call(kind, colour, region, True))
+    for name, (kfn, pfn) in dcalls.items():
+        kfn(), pfn()
+        sync()
+        p1 = events_ms(pfn, 5)
+        k1 = events_ms(kfn, 50)
+        k2 = events_ms(kfn, 50)
+        p2 = events_ms(pfn, 5)
+        per_call[name] = (min(k1, k2), min(p1, p2))
+        print(f"per call on a 64^3 block of 128^3 (2, 2, 2), f32: {name} "
+              f"{per_call[name][0]:.4f} ms, plain twin {per_call[name][1]:.4f} ms "
+              f"{tag}")
+    check(all(bool(torch.isfinite(t).all()) for t in (x7, x7m, x8)),
+          "dist timing fields not finite")
+    # their least work: K7 reads and writes the extended block once, n
+    # iterations over its interior; K8 reads the ghosted block and writes
+    # what it updates (the shell pass: the shell, the ghost planes and the
+    # layer inside)
+    gb = 4 * 66**3
+    shell = 64**3 - 62**3
+    work.update({
+        "dist_rb_sweeps": (2 * 4 * e7[0] * e7[1] * e7[2],
+                           6 * 11 * (e7[0] - 2) * (e7[1] - 2) * (e7[2] - 2)),
+        "dist_rb_sweeps_maf": (2 * 4 * e7m[0] * e7m[1] * e7m[2],
+                               2 * 20 * (e7m[0] - 2) * (e7m[1] - 2) * (e7m[2] - 2)),
+        "block_sweep_jacobi": (2 * gb, 11 * 64**3),
+        "block_sweep_colour": (1.5 * gb, 11 * 64**3 / 2),
+        "block_sweep_both": (2 * gb, 11 * 64**3),
+        "block_sweep_interior": (4 * 64**3 + 2 * 62**3, 11 * 62**3 / 2),
+        "block_sweep_shell": (4 * (66**3 - 60**3) + 2 * shell, 11 * shell / 2),
+    })
+
     rbpack_cu = "cubez_tpu_torch/csrc/rbpack.cu"
     sweeps_cu = "cubez_tpu_torch/csrc/sweeps.cu"
     rblines_cu = "cubez_tpu_torch/csrc/rblines.cu"
     lines_cu = "cubez_tpu_torch/csrc/lines.cu"
+    dist_rbpack_cu = "cubez_tpu_torch/csrc/dist_rbpack.cu"
+    dist_sweeps_cu = "cubez_tpu_torch/csrc/dist_sweeps.cu"
     k4_site = "cubez_tpu/pallas_kernels/sweeps.py:416"
     k5_site = "cubez_tpu/pallas_kernels/rblines.py:407"
     k6_site = "cubez_tpu/pallas_kernels/lines.py:441"
+    k7_site = ("cubez_tpu/pallas_kernels/sweeps2x.py:480 via "
+               "cubez_tpu/pallas_kernels/dist_rbpack.py:299")
+    k8_site = "cubez_tpu/pallas_kernels/dist_sweeps.py:269"
     meta = {
         "rb_color": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
         "rb_color_maf": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
@@ -742,15 +1108,26 @@ def main():
         "line_j_maf": (lines_cu, k6_site),
         "line_rb": (lines_cu, k6_site),
         "line_rb_maf": (lines_cu, k6_site),
+        "dist_rb_sweeps": (dist_rbpack_cu, k7_site),
+        "dist_rb_sweeps_maf": (dist_rbpack_cu, k7_site),
+        "block_sweep_jacobi": (dist_sweeps_cu, k8_site),
+        "block_sweep_colour": (dist_sweeps_cu, k8_site),
+        "block_sweep_both": (dist_sweeps_cu, k8_site),
+        "block_sweep_interior": (dist_sweeps_cu, k8_site),
+        "block_sweep_shell": (dist_sweeps_cu, k8_site),
     }
     for name in meta:
         check(path_launches.get(name, 0) > 0, f"{name}: no path launched it")
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": site,
-         "launches": path_launches[name], "max_abs_err": err[name],
-         "ms": per_call[name][0], "plain_ms": per_call[name][1]}
-        for name, (src, site) in meta.items()
-    ]
+    kernels = []
+    for name, (src, site) in meta.items():
+        bms, by = bound(*work[name])
+        # no single PyTorch call computes a red-black colour, a Jacobi sweep
+        # or a line relaxation: library_ms is null for every kernel here
+        kernels.append(
+            {"name": name, "route": "cuda", "source": src, "replaces": site,
+             "launches": path_launches[name], "max_abs_err": err[name],
+             "ms": per_call[name][0], "plain_ms": per_call[name][1],
+             "bound_ms": bms, "bound_by": by, "library_ms": None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,19 +9,27 @@ package ``cubez_tpu`` beside it is the reference it is tested against.
     prob = czt.Problem.poisson_cube(128, device="cuda")
     r = czt.solve(prob, "sor2sma", omega=1.5, itr_max=10000)
     print(r.iters, r.res, czt.max_error(prob.grid, r.x))
+
+    # the same solve over a (2, 2, 2) block mesh, eight blocks on one card
+    cm = czt.make_mesh(prob.grid.shape_kij, devices=["cuda:0"] * 8)
+    r = czt.solve_dist(prob, cm, "sor2sma", omega=1.5, itr_max=10000)
 """
 
 from .core.grid import Grid, max_error, max_error_loc
 from .core.problem import Problem
+from .parallel import CubeMesh, make_mesh, solve_dist
 from .solvers.api import SOLVERS, solve
 from .solvers.driver import SolveResult
 
 __all__ = [
+    "CubeMesh",
     "Grid",
     "Problem",
     "SOLVERS",
     "SolveResult",
     "max_error",
+    "make_mesh",
     "max_error_loc",
     "solve",
+    "solve_dist",
 ]

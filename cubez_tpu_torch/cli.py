@@ -1,7 +1,12 @@
 """CLI with the reference's positional interface (src/main.cpp:19-30):
 
     python -m cubez_tpu_torch.cli gsz_x gsz_y gsz_z solver ItrMax coef \\
-        [precond] [--fp64] [--eps E] [--device cuda|cpu] [--impl auto|plain]
+        [precond] [gdv_x gdv_y gdv_z] [--dist] [--fp64] [--eps E] \\
+        [--device cuda|cpu] [--impl auto|plain]
+
+A process division ``gdv_x gdv_y gdv_z`` (or ``--dist``, the automatic
+division) runs ``solve_dist`` over a block mesh: blocks go round-robin
+over the visible CUDA devices (``--device cpu``: the host).
 
 Writes ``<solver>.txt`` (cz_Evaluate.cpp:210-218), prints the iteration and
 residual banner (cz_Evaluate.cpp:492-496) and the analytic ``Error max``
@@ -11,6 +16,7 @@ check (cz_Evaluate.cpp:550-563).
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 import time
 
@@ -18,7 +24,6 @@ import torch
 
 # options of the JAX package's CLI that later slices of the port bring
 _LATER = {
-    "dist": "slice 9 (multi-GPU)",
     "profile": "slice 8 (perf)",
     "dump": "slice 7 (extensions)",
 }
@@ -50,7 +55,8 @@ def build_argparser():
         help="run a one-chunk solve first so the reported wall time excludes "
         "the kernel build and first launches",
     )
-    ap.add_argument("--dist", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--dist", action="store_true",
+                    help="distributed solve over an automatic block division")
     ap.add_argument("--profile", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--dump", default=None, help=argparse.SUPPRESS)
     return ap
@@ -68,6 +74,7 @@ def main(argv=None):
 
     from .core.grid import max_error_loc
     from .core.problem import Problem
+    from .parallel import make_mesh, solve_dist
     from .solvers.api import solve
     from .solvers.steps import require_ported
 
@@ -75,11 +82,10 @@ def main(argv=None):
     rest = list(args.rest)
     if rest and not rest[0].isdigit():
         precond = rest.pop(0)
-    if len(rest) == 3:
-        raise NotImplementedError(
-            "a process division (gdv_x gdv_y gdv_z) is slice 9 (multi-GPU) "
-            "of ROADMAP.md"
-        )
+    gdv = None
+    if len(rest) == 3 and all(r.isdigit() for r in rest):
+        gdv = tuple(int(r) for r in rest)
+        rest = []
     if rest:
         print(f"unexpected trailing args: {rest}", file=sys.stderr)
         return 2
@@ -89,6 +95,18 @@ def main(argv=None):
     dtype = torch.float64 if args.fp64 else torch.float32
     prob = Problem.poisson_cube((gx, gy, gz), dtype=dtype, device=args.device,
                                 maf=is_maf)
+    run = functools.partial(solve, prob, args.solver)
+    if args.dist or gdv:
+        nblocks = None if gdv is None else gdv[0] * gdv[1] * gdv[2]
+        ndev = torch.cuda.device_count() if args.device == "cuda" else 1
+        devices = [args.device if args.device == "cpu" else f"cuda:{b % ndev}"
+                   for b in range(nblocks or ndev)]
+        # argv order x, y, z -> the mesh's z, x, y
+        div = (gdv[2], gdv[0], gdv[1]) if gdv else None
+        cm = make_mesh((gz, gx, gy), devices=devices, div=div)
+        print(f"mesh division (z,x,y) = {cm.div} on {len(set(devices))} "
+              "device(s)")
+        run = functools.partial(solve_dist, prob, cm, args.solver)
     print(f"Iterative Method = {args.solver}")
 
     def sync():
@@ -96,21 +114,14 @@ def main(argv=None):
             torch.cuda.synchronize()
 
     if args.warmup:
-        solve(prob, args.solver, omega=args.coef, itr_max=args.itr_max,
-              eps=1e9, precond=precond, impl=args.impl)
+        run(omega=args.coef, itr_max=args.itr_max, eps=1e9, precond=precond,
+            impl=args.impl)
         sync()
 
     t0 = time.perf_counter()
-    res = solve(
-        prob,
-        args.solver,
-        omega=args.coef,
-        itr_max=args.itr_max,
-        eps=args.eps,
-        precond=precond,
-        history_path=f"{args.solver}.txt",
-        impl=args.impl,
-    )
+    res = run(omega=args.coef, itr_max=args.itr_max, eps=args.eps,
+              precond=precond, history_path=f"{args.solver}.txt",
+              impl=args.impl)
     sync()
     dt = time.perf_counter() - t0
 

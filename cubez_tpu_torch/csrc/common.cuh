@@ -63,6 +63,29 @@ __device__ __forceinline__ T const_dp(T zm, T zp, T xp, T xm, T yp, T ym, const 
   return mul_rn(fma_rn(ss, T(1.0 / 6.0), -cen), omega);
 }
 
+// dp at packed point p of a colour plane (cuda_kernels/rbpack.py's layout,
+// planes of (K, I2, J)): physical (k, i = 2*i2 + s, j), centre value cen,
+// ``o`` the other colour's plane.  Its K and J neighbours are o's same
+// (k, i2, j) one row or lane away; its I neighbours o's rows i2 and
+// i2 - 1 + 2s.  The caller keeps i in [1, 2*I2 - 2].  kMaf takes the MAF
+// weights of a (K, 2*I2, J) field.
+template <typename T, bool kMaf>
+__device__ __forceinline__ T packed_dp(const T* __restrict__ o, const T* b,
+                                       const T* __restrict__ tab, T cen, size_t p,
+                                       unsigned k, unsigned i2, unsigned j, unsigned s,
+                                       unsigned K, unsigned I2, unsigned J, T omega) {
+  const size_t row = size_t(I2) * J;  // one k step
+  const T xp = s ? o[p + J] : o[p];
+  const T xm = s ? o[p] : o[p - J];
+  if constexpr (kMaf) {
+    const MafTables<T> w(tab, K, 2 * I2, J);
+    return maf_dp(w, k, 2 * i2 + s, j, o[p - row], o[p + row], xp, xm, o[p + 1],
+                  o[p - 1], b, cen, omega);
+  } else {
+    return const_dp(o[p - row], o[p + row], xp, xm, o[p + 1], o[p - 1], b, cen, omega);
+  }
+}
+
 // Sum over a block of kThreads threads (a multiple of 32) in a fixed
 // order; the result is valid in thread 0.  Every thread must call it.
 template <int kThreads, typename A>

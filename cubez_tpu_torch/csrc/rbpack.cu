@@ -84,21 +84,10 @@ __device__ __forceinline__ T update_point(
   const unsigned s = (k + j + unsigned(offset) + 1u + unsigned(colour)) & 1u;
   // physical i = 2*i2 + s must lie in [1, I-2]
   if ((i2 == 0 && s == 0) || (i2 + 1 == I2 && s == 1)) return T(0);
-  const size_t row = size_t(I2) * J;  // one k step
   const size_t p = (size_t(k) * I2 + i2) * J + j;
-  const T xp = s ? o[p + J] : o[p];
-  const T xm = s ? o[p] : o[p - J];
   const T* bp = b != nullptr ? b + p : nullptr;
   const T cen = c[p];
-  T dp;
-  if constexpr (kMaf) {
-    const MafTables<T> w(tab, K, 2 * I2, J);
-    dp = maf_dp(w, k, 2 * i2 + s, j, o[p - row], o[p + row], xp, xm, o[p + 1],
-                o[p - 1], bp, cen, omega);
-  } else {
-    dp = const_dp(o[p - row], o[p + row], xp, xm, o[p + 1], o[p - 1], bp, cen,
-                  omega);
-  }
+  const T dp = packed_dp<T, kMaf>(o, bp, tab, cen, p, k, i2, j, s, K, I2, J, omega);
   c[p] = add_rn(cen, dp);
   return dp;
 }

@@ -85,6 +85,13 @@ def _declare(lib):
                                f64, i32, i32, vp]),
             ("rbl_color", [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,
                            i32, i32, vp]),
+            # dist_rbpack.cu (K7) and dist_sweeps.cu (K8)
+            ("dist_rb_max_blocks", [i32, i32, ctypes.POINTER(i32)]),
+            ("dist_rb_sweeps", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,
+                                u32, ctypes.POINTER(i32), i32, i32, vp]),
+            ("block_sweep_max_blocks", [i32, ctypes.POINTER(i32)]),
+            ("block_sweep", [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, f64,
+                             ctypes.POINTER(i32), i32, i32, vp]),
         ):
             fn = getattr(lib, f"cz_{name}_{t}")
             fn.argtypes = args

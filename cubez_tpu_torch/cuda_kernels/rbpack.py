@@ -169,13 +169,14 @@ def maf_r(w, nb):
     return r
 
 
-def rb_color_plain(xp, bp, colour: int, omega: float, offset: int = 0,
-                   tab=None):
-    """Plain PyTorch twin of ``rb_color``: update colour ``colour`` of the
-    packed state ``xp`` in place; return its sum of dp^2 (float64, 0-d).
-    ``tab`` (``maf_tables``) selects the MAF update.  The sums of
-    ``_pair_update`` / ``_pair_update_maf`` (rbpack.py:132-146, 176-187),
-    in their order."""
+def colour_update(xp, bp, colour: int, omega: float, offset: int = 0,
+                  tab=None):
+    """(centre, upd, sel) for colour ``colour`` of the packed state ``xp``
+    at k in [1, K-2], every i2, j in [1, J-2]: ``centre`` the view of those
+    points, ``upd`` their unmasked dp, ``sel`` True where the point's
+    physical i is 2*i2 + 1.  The sums of ``_pair_update`` /
+    ``_pair_update_maf`` (rbpack.py:132-146, 176-187), in their order;
+    ``tab`` (``maf_tables``) selects the MAF update."""
     _, K, I2, J = xp.shape
     cen = xp[colour, 1:-1, :, 1:-1]
     oth = xp[1 - colour]
@@ -212,6 +213,16 @@ def rb_color_plain(xp, bp, colour: int, omega: float, offset: int = 0,
             r = r + b
         dd = 2.0 * ((t["c1"][i] + t["c2"][1:-1]) + t["c3"][1:-1, None, None])
         upd = (r / dd - cen) * om
+    return cen, upd, sel
+
+
+def rb_color_plain(xp, bp, colour: int, omega: float, offset: int = 0,
+                   tab=None):
+    """Plain PyTorch twin of ``rb_color``: update colour ``colour`` of the
+    packed state ``xp`` in place; return its sum of dp^2 (float64, 0-d).
+    ``tab`` (``maf_tables``) selects the MAF update."""
+    cen, upd, sel = colour_update(xp, bp, colour, omega, offset, tab)
+    I2 = xp.shape[2]
     i2 = torch.arange(I2, device=xp.device)[None, :, None]
     inner = ((i2 > 0) | sel) & ((i2 < I2 - 1) | ~sel)  # i in [1, I-2]
     dp = torch.where(inner, upd, 0.0)

@@ -50,12 +50,15 @@ def run_iterative(step, x0, b, res_normal: float, itr_max: int,
     rounded up to whole calls of a multi-iteration step
     (``step.iters_per_call``).  ``pre``/``post`` convert to and from the
     step's state layout; ``pre`` must return new tensors, because steps may
-    update their state in place.
+    update their state in place.  The state may also be a list of tensors
+    (the blocks of a distributed solve); the history then lives on the
+    first block's device.
     """
     if itr_max < 1:
         raise ValueError("itr_max must be >= 1")
+    first = x0[0] if isinstance(x0, list) else x0
     if check_every is None:
-        check_every = 16 if x0.is_cuda else 1
+        check_every = 16 if first.is_cuda else 1
     ipc = getattr(step, "iters_per_call", 1)
     single = getattr(step, "single", step)
     chunk = max(ipc, -(-check_every // ipc) * ipc)
@@ -64,13 +67,13 @@ def run_iterative(step, x0, b, res_normal: float, itr_max: int,
     total = -(-itr_max // chunk) * chunk
     x = x0 if pre is None else pre(x0)
     b = b if pre is None else pre(b)
-    hist = torch.zeros(total, dtype=torch.float64, device=x.device)
+    hist = torch.zeros(total, dtype=torch.float64, device=first.device)
     # res >= eps  <=>  r2 >= eps^2 / res_normal
     thresh = eps * eps / res_normal
-    snap = torch.empty_like(x)
+    snap = _like(x)
     done = 0
     while done < total:
-        snap.copy_(x)  # the field at the start of this chunk
+        _copy(snap, x)  # the field at the start of this chunk
         for c in range(done, done + chunk, ipc):
             x, r2 = step(x, b)
             hist[c:c + ipc] = r2
@@ -89,6 +92,20 @@ def run_iterative(step, x0, b, res_normal: float, itr_max: int,
         x = post(x)
     return SolveResult(x=x, iters=iters, res=float(res_hist[-1]),
                        history=res_hist)
+
+
+def _like(x):
+    if isinstance(x, list):
+        return [torch.empty_like(t) for t in x]
+    return torch.empty_like(x)
+
+
+def _copy(dst, src):
+    if isinstance(dst, list):
+        for d, s in zip(dst, src):
+            d.copy_(s)
+    else:
+        dst.copy_(src)
 
 
 def fixed_sweeps(step, x, b, count: int):

@@ -5,6 +5,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -55,9 +56,36 @@ def test_cli_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
     (["--dump", "f.sph"], "slice 7"), (["2", "1", "1"], "slice 9"),
 ])
 def test_cli_later_slices_raise(extra, where, tmp_path, monkeypatch):
+    """Options of later slices, and a distributed line solve (slice 9b),
+    raise naming their slice."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=where):
-        main(["8", "8", "8", "sor2sma", "10", "1.5", "--device", "cpu"] + extra)
+        main(["8", "8", "8", "pcr_rb", "10", "1.5", "--device", "cpu"] + extra)
+
+
+def test_cli_division_runs_solve_dist(tmp_path, monkeypatch, capsys):
+    """``32 32 32 sor2sma 10000 1.5 2 2 2``: the mesh (z, x, y) from the
+    argv's x, y, z, the serial CLI's count, and its history within rtol
+    1e-5."""
+    for name, extra in (("serial", []), ("dist", ["2", "2", "2"])):
+        d = tmp_path / name
+        d.mkdir()
+        monkeypatch.chdir(d)
+        assert main(["32", "32", "32", "sor2sma", "10000", "1.5", *extra,
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "mesh division (z,x,y) = (2, 2, 2) on 1 device(s)" in out
+    assert out.count("Iter = 199  Res = ") == 2
+
+    def hist(name):
+        rows = (tmp_path / name / "sor2sma.txt").read_text().splitlines()
+        return [float(r.split(",")[1]) for r in rows[1:]]
+
+    np.testing.assert_allclose(hist("dist"), hist("serial"), rtol=1e-5)
+    monkeypatch.chdir(tmp_path)
+    main(["16", "32", "8", "jacobi", "3", "0.8", "4", "2", "1", "--device",
+          "cpu"])
+    assert "mesh division (z,x,y) = (1, 4, 2)" in capsys.readouterr().out
 
 
 def test_cli_unported_solver_raises(tmp_path, monkeypatch):

@@ -308,3 +308,109 @@ def test_line_solver_without_two_inner_k_raises_on_cuda(dev):
     assert r.x.is_cuda
     with pytest.raises(ValueError, match="K - 2 >= 2"):
         k6.line_rb(torch.zeros(3, 8, 8, device=dev), None, OMEGA)
+
+
+# ---- slice 9a: K7 (dist_rbpack) and K8 (dist_sweeps) ------------------------
+
+# (block shape, global shape, mesh coords of the block, split axes)
+DIST_BLOCKS = [
+    ((16, 16, 16), (32, 32, 32), (1, 0, 1), (True, True, True)),
+    ((12, 14, 16), (24, 28, 16), (0, 1, 0), (True, True, False)),
+]
+
+
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 6])
+@pytest.mark.parametrize("case", range(len(DIST_BLOCKS)))
+def test_k7_matches_plain_twin(dev, case, n, dtype, maf):
+    """K7 against its twin on one extended block with nonzero offsets:
+    float32 bitwise, float64 within 1e-14, owned residuals to rtol 1e-5."""
+    from cubez_tpu_torch.cuda_kernels import dist_rbpack as k7
+
+    bs, gs, coords, split = DIST_BLOCKS[case]
+    mc = None
+    if maf:
+        K, I, J = gs
+        mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                                device=dev)[0].mc
+    origin = tuple(c * s for c, s in zip(coords, bs))
+    kern = k7.make_dist_packed_sweepnx(bs, gs, dtype, omega=OMEGA, n=n,
+                                       split=split, h=12, mc=mc)
+    twin = k7.make_dist_packed_sweepnx(bs, gs, dtype, omega=OMEGA, n=n,
+                                       split=split, h=12, mc=mc, plain=True)
+    if n == 6 and min(b for b, s in zip(bs, split) if s) < 12:
+        assert kern is None
+        return
+    tab = kern.block_tables(origin, dev) if maf else None
+    Ke, Ie, Je, I2e = k7.ext_dims(bs, kern.hs)
+    gen = torch.Generator().manual_seed(7 + n)
+    x = (torch.rand((2, Ke, I2e, Je), generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    xk, xp = x.clone(), x.clone()
+    before = k7.dist_rb_sweeps.launches
+    rk = kern(xk, origin, tab)
+    rp = twin(xp, origin, tab)
+    torch.cuda.synchronize()
+    assert k7.dist_rb_sweeps.launches == before + 1
+    assert float((xk - xp).abs().max()) <= (0.0 if dtype == torch.float32 else 1e-14)
+    torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_b", [False, True])
+@pytest.mark.parametrize("variant", [
+    ("jacobi", None, "all"), ("sor2sma", 0, "all"), ("sor2sma", 1, "all"),
+    ("sor2sma", None, "all"), ("sor2sma", 0, "interior"),
+    ("sor2sma", 1, "shell"),
+])
+def test_k8_matches_plain_twin(dev, variant, with_b, dtype):
+    """K8 against its twin on a ghosted block with nonzero offsets (a
+    corner block, whose faces hold the physical boundary): float32
+    bitwise, float64 within 1e-14, residuals to rtol 1e-5."""
+    from cubez_tpu_torch.cuda_kernels import dist_sweeps as k8
+
+    kind, colour, region = variant
+    bs, gs, origin = (10, 12, 14), (20, 24, 28), (10, 0, 14)
+    gen = torch.Generator().manual_seed(11)
+    x = (torch.rand(k8.block_layout(bs), generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    b = (torch.rand(x.shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    b = b if with_b else None
+    geom = (*origin, *gs, 1)
+    keep = x.clone()
+    before = k8.block_sweep.launches
+    xk, rk = k8.block_sweep(x.clone() if kind != "jacobi" else x, b, kind, colour,
+                            0.8, geom, region)
+    xp, rp = k8.block_sweep_plain(keep.clone(), b, kind, colour, 0.8, geom, region)
+    torch.cuda.synchronize()
+    assert k8.block_sweep.launches == before + 1
+    assert torch.equal(x, keep)  # Jacobi is out of place
+    assert float((xk - xp).abs().max()) <= (0.0 if dtype == torch.float32 else 1e-14)
+    torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("solver,sync,omega,iters", [
+    ("sor2sma", "pack", OMEGA, 199), ("sor2sma_maf", "pack", OMEGA, 199),
+    ("sor2sma", "color", OMEGA, 199), ("sor2sma", "overlap", OMEGA, None),
+    ("jacobi", "auto", 0.8, 1015),
+])
+def test_solve_dist_on_cuda_matches_cpu_twin(dev, solver, sync, omega, iters):
+    """solve_dist at 32^3 over (2, 2, 2) blocks on one card: the kernels
+    stop where the CPU twins stop, with bitwise equal fields (the packed
+    path: the serial solve's field too)."""
+    from cubez_tpu_torch.cuda_kernels import dist_rbpack as k7
+    from cubez_tpu_torch.cuda_kernels import dist_sweeps as k8
+
+    maf = solver.endswith("_maf")
+    g = czt.Problem.poisson_cube(32, device=dev, maf=maf)
+    c = czt.Problem.poisson_cube(32, device="cpu", maf=maf)
+    cg = czt.make_mesh((32, 32, 32), devices=[dev] * 8, div=(2, 2, 2))
+    cc = czt.make_mesh((32, 32, 32), devices=["cpu"] * 8, div=(2, 2, 2))
+    before = k7.dist_rb_sweeps.launches + k8.block_sweep.launches
+    rg = czt.solve_dist(g, cg, solver, omega=omega, itr_max=10000, sync=sync)
+    rc = czt.solve_dist(c, cc, solver, omega=omega, itr_max=10000, sync=sync)
+    assert k7.dist_rb_sweeps.launches + k8.block_sweep.launches > before
+    assert rg.iters == rc.iters and (iters is None or rg.iters == iters)
+    assert torch.equal(rg.x.cpu(), rc.x)
+    if sync == "pack":
+        rs = czt.solve(g, solver, omega=omega, itr_max=10000)
+        assert torch.equal(rg.x, rs.x)

@@ -209,17 +209,20 @@ def test_registry_verbatim_and_unknown_solver():
 
 
 def test_import_pulls_in_no_jax():
+    """Every module of the port, found by walking the package, imports
+    without jax or the JAX package."""
     code = (
-        "import sys; import cubez_tpu_torch, cubez_tpu_torch.cli, "
-        "cubez_tpu_torch.cuda_kernels.rbpack, cubez_tpu_torch.solvers.api, "
-        "cubez_tpu_torch.cuda_kernels.sweeps, cubez_tpu_torch.ops.maf, "
-        "cubez_tpu_torch.cuda_kernels._build, "
-        "cubez_tpu_torch.cuda_kernels.lines, "
-        "cubez_tpu_torch.cuda_kernels.rblines; "
+        "import pkgutil, importlib, sys; import cubez_tpu_torch as p; "
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'cubez_tpu_torch.')]; "
+        "[importlib.import_module(m) for m in mods]; "
+        "assert 'cubez_tpu_torch.parallel.dist_pack' in mods, mods; "
+        "assert 'cubez_tpu_torch.cuda_kernels.dist_sweeps' in mods, mods; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'cubez_tpu.')) or m == 'cubez_tpu']; "
-        "assert not bad, bad"
+        "assert not bad, bad; print(len(mods))"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+    assert int(r.stdout) >= 25
