@@ -56,8 +56,10 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
 11. the CLI in subprocesses, ``124 124 124 sor2sma 10000 1.5``, ``... jacobi
     10000 0.8``, ``... sor2sma_maf 10000 1.5`` and ``... pcr_rb 10000 1.5``
     (pcr_rb's count to the JAX package's CLI's +-2%, its Error max at rtol
-    1e-2), and ``124 124 124 sor2sma 10000 1.5 2 2 2`` (solve_dist over a
-    (2, 2, 2) mesh on the card), which must give the serial CLI's count;
+    1e-2), ``124 124 124 sor2sma 10000 1.5 2 2 2`` (solve_dist over a
+    (2, 2, 2) mesh on the card), which must give the serial CLI's count,
+    and ``124 124 124 pcr_rb 10000 1.5 2 2 2`` (K9 on K-split blocks), whose
+    count is recorded beside the serial CLI's;
 12. times each step and its plain twin at 128^3 and 512^3 (sor2sma on the
     n = 6 chain, jacobi on K4, sor2sma_maf on the MAF pair, the MAF chain
     at n = 6, pcr_rb on K5, pcr_rb_maf on K5-MAF, pcr_j_esa on K6; CUDA
@@ -79,7 +81,27 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     pack (the serial 512^3 count and field);
 15. times the distributed steps per iteration at 128^3 and 512^3 over
     (2, 2, 2) (pack and 'color') beside the serial n = 6 chain, and K7 and
-    K8 per call at 128^3's blocks against their twins.
+    K8 per call at 128^3's blocks against their twins;
+16. K9 (block_pcr) against its twin in every variant, 'pcr' and
+    'fastdiag', constant and MAF, colours 0, 1 and the line-Jacobi pass,
+    zero and streamed b, on the 64^3 blocks of 128^3 over (2, 2, 2) and a
+    (128, 64, 64) block over (1, 2, 2), and K10 (fused_pcr) at 128^3 in
+    every variant; float32 bitwise, float64 within 1e-14;
+17. the dist line path, each solve with the counts zeroed just before and
+    read just after: solve_dist at 128^3 f32 of pcr_rb, pcr_rb_maf (omega
+    1.5) and pcr_j_esa (1.0) over (1, 2, 2) (K9 'fastdiag'; the serial
+    counts 1356, 1356, 4232 +-2% and the serial Error max, rtol 1e-2) and
+    over (2, 2, 2) (K9 'pcr'; the JAX package's jnp dist counts 1379,
+    1379, 4236 +-2% and its Error max, rtol 1e-2), the same three at 64^3
+    over (2, 2, 2) (JAX's 479, 479, 1814 +-2%; both references from
+    tools/jax_dist_counts.py), f64 pcr_rb at 64^3 and jacobi_maf /
+    sor2sma_maf 'color' at 128^3 on parallel/dist.py (no kernel; the serial
+    counts 5380 and 1813 +-2%), and K10's own entry point
+    (make_fused_pcr_step 'pcr_rb' and 'pcr', constant and MAF) for 60
+    fixed sweeps, within 1e-4 of K5/K6's;
+18. times the dist line steps per iteration at 128^3 over (2, 2, 2) and
+    (1, 2, 2) and at 512^3 over (2, 2, 2), and K9 and K10 per call at the
+    path's shapes against their twins.
 
 The line before the last is a JSON object with one entry per kernel
 variant (its bound: the larger of the bytes it must move over 3.35 TB/s
@@ -158,12 +180,15 @@ def main():
     from cubez_tpu_torch import (Grid, Problem, make_mesh, max_error_loc, solve,
                                  solve_dist)
     from cubez_tpu_torch.cuda_kernels import _build
+    from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
     from cubez_tpu_torch.cuda_kernels import dist_rbpack as k7
     from cubez_tpu_torch.cuda_kernels import dist_sweeps as k8
+    from cubez_tpu_torch.cuda_kernels import pcr as k10
     from cubez_tpu_torch.cuda_kernels import lines as k6
     from cubez_tpu_torch.cuda_kernels import rblines as k5
     from cubez_tpu_torch.cuda_kernels import rbpack as rb
     from cubez_tpu_torch.cuda_kernels import sweeps as k4
+    from cubez_tpu_torch.ops.pcr import num_stage
     from cubez_tpu_torch.parallel import dist_fused, dist_pack
     from cubez_tpu_torch.solvers.driver import fixed_sweeps
     from cubez_tpu_torch.solvers.fused_cache import get_fused_step
@@ -178,14 +203,17 @@ def main():
     wrappers = {"rb_color": rb.rb_color, "rb_sweeps_n": rb.rb_sweeps_n,
                 "k4_jacobi": k4.jacobi_k4, "k4_rb_color": k4.sor2sma_k4,
                 "rbl": k5.rbl, "line_j": k6.line_j, "line_rb": k6.line_rb,
-                "dist_rb_sweeps": k7.dist_rb_sweeps}
+                "dist_rb_sweeps": k7.dist_rb_sweeps, "fused_pcr": k10.fused_pcr}
+    k9_variants = ("block_pcr", "block_pcr_maf", "block_pcr_fastdiag",
+                   "block_pcr_fastdiag_maf")
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = w.maf_launches = 0
-        # K8 counts its launches by variant too
-        k8.block_sweep.launches = 0
-        k8.block_sweep.variant_launches = {}
+        # K8 and K9 count their launches by variant too
+        for w in (k8.block_sweep, k9.block_pcr):
+            w.launches = 0
+            w.variant_launches = {}
 
     def read_counts():
         out = {}
@@ -194,6 +222,8 @@ def main():
             out[name + "_maf"] = w.maf_launches
         for v in ("jacobi", "colour", "both", "interior", "shell"):
             out["block_sweep_" + v] = k8.block_sweep.variant_launches.get(v, 0)
+        for v in k9_variants:
+            out[v] = k9.block_pcr.variant_launches.get(v, 0)
         return out
 
     path_launches = {}  # variant -> launches in the first path that runs it
@@ -593,7 +623,8 @@ def main():
     runs = (("sor2sma", "sor2sma", "1.5", ()), ("jacobi", "jacobi", "0.8", ()),
             ("sor2sma_maf", "sor2sma_maf", "1.5", ()),
             ("pcr_rb", "pcr_rb", "1.5", ()),
-            ("sor2sma_dist", "sor2sma", "1.5", ("2", "2", "2")))
+            ("sor2sma_dist", "sor2sma", "1.5", ("2", "2", "2")),
+            ("pcr_rb_dist", "pcr_rb", "1.5", ("2", "2", "2")))
     cli_iters = {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
@@ -631,12 +662,17 @@ def main():
                     e = float(ln.split()[3])
                     check(abs(e / err_j - 1) <= ERR_RTOL,
                           f"CLI {solver}: Error max {e} vs the JAX CLI's {err_j}")
-            if label == "sor2sma_dist":
+            if label.endswith("_dist"):
                 check("mesh division (z,x,y) = (2, 2, 2) on 1 device(s)" in out,
-                      "CLI sor2sma_dist: no (2, 2, 2) mesh")
+                      f"CLI {label}: no (2, 2, 2) mesh")
     check(cli_iters["sor2sma_dist"] == cli_iters["sor2sma"],
           f"CLI 124^3: solve_dist {cli_iters['sor2sma_dist']} iterations, "
           f"serial {cli_iters['sor2sma']}")
+    # block-local K-lines (K split) change the trajectory: no serial count
+    # applies, so the count is recorded beside the serial CLI's (phase 17
+    # gates the K-split counts at 64^3)
+    print(f"CLI 124^3 pcr_rb over (2, 2, 2): {cli_iters['pcr_rb_dist']} "
+          f"iterations (serial CLI {cli_iters['pcr_rb']}) {tag}", flush=True)
 
     # ---- 12. timing ------------------------------------------------------------
     stamp(12)
@@ -1078,6 +1114,269 @@ def main():
         "block_sweep_shell": (4 * (66**3 - 60**3) + 2 * shell, 11 * shell / 2),
     })
 
+    # ---- 16. K9 and K10 against their twins -------------------------------------
+    stamp(16)
+    # (global shape, division, block coordinates, forms): the 64^3-owned
+    # blocks of 128^3 over (2, 2, 2), K split, so 'pcr' only, and a
+    # (128, 64, 64) block over (1, 2, 2), both forms; offset 1
+    k9_cases = (((128, 128, 128), (2, 2, 2), ((0, 0, 0), (1, 1, 1)), ("pcr",)),
+                ((128, 128, 128), (1, 2, 2), ((0, 1, 0),), ("pcr", "fastdiag")))
+    n_cmp = 0
+    for gsz, div, coords, forms in k9_cases:
+        bsz = tuple(g // d for g, d in zip(gsz, div))
+        for dtype in (f32, f64):
+            tol = 0.0 if dtype == f32 else 1e-14
+            mc = stretched_mc(gsz, dtype)
+            for c in coords:
+                origin = tuple(a * b for a, b in zip(c, bsz))
+                x = rand(tuple(v + 2 for v in bsz), dtype).to(dev)
+                b = rand(x.shape, dtype).to(dev)
+                for form in forms:
+                    for maf in (False, True):
+                        for colour in (0, 1, None):
+                            for bz in (True, False):
+                                kw = dict(omega=OMEGA, color=colour, offset=1,
+                                          b_is_zero=bz, maf=maf,
+                                          mc=mc if maf else None, solver=form)
+                                ks = k9.make_block_pcr(bsz, gsz, dtype, **kw)
+                                ps = k9.make_block_pcr(bsz, gsz, dtype, plain=True,
+                                                       **kw)
+                                tab = ks.block_tables(origin, dev) if maf else None
+                                xk, rk = ks(x.clone(), b, origin, tab)
+                                xp, rp = ps(x.clone(), b, origin, tab)
+                                sync()
+                                name = k9.variant(form, maf)
+                                e = float((xk - xp).abs().max())
+                                err[name] = max(err.get(name, 0.0), e)
+                                rel = float((rk - rp).abs() / rp.abs())
+                                where = (f"K9 {form} maf={maf} colour={colour} "
+                                         f"b={not bz} {div} {c} {dtype}")
+                                check(torch.isfinite(xk).all(),
+                                      f"non-finite field: {where}")
+                                check(e <= tol, f"field differs by {e}: {where}")
+                                check(rel <= 1e-5,
+                                      f"residual differs by rtol {rel}: {where}")
+                                n_cmp += 1
+    sh = (128, 128, 128)
+    for dtype in (f32, f64):
+        tol = 0.0 if dtype == f32 else 1e-14
+        mc = stretched_mc(sh, dtype)
+        x, b = rand(sh, dtype).to(dev), rand(sh, dtype).to(dev)
+        for maf in (False, True):
+            tab = rb.maf_tables(mc, sh, dtype) if maf else None
+            for colour in (0, 1, None):
+                for bb in (None, b):
+                    xk, rk = k10.fused_pcr(x.clone(), bb, OMEGA, colour, 1, tab)
+                    xp, rp = k10.fused_pcr_plain(x.clone(), bb, OMEGA, colour, 1,
+                                                 tab)
+                    sync()
+                    name = "fused_pcr" + ("_maf" if maf else "")
+                    e = float((xk - xp).abs().max())
+                    err[name] = max(err.get(name, 0.0), e)
+                    rel = float((rk - rp).abs() / rp.abs())
+                    where = (f"K10 maf={maf} colour={colour} b={bb is not None} "
+                             f"{dtype}")
+                    check(torch.isfinite(xk).all(), f"non-finite field: {where}")
+                    check(e <= tol, f"field differs by {e}: {where}")
+                    check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
+                    n_cmp += 1
+    print(f"K9 and K10 vs plain twins: {n_cmp} comparisons passed (f32 bitwise, "
+          f"f64 <= 1e-14); max |field diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(err.items())
+                      if k.startswith(("block_pcr", "fused_pcr"))), flush=True)
+
+    # ---- 17. the dist line path at full width ----------------------------------
+    stamp(17)
+    # (omega, the serial port's 128^3 count: the f32 oracle's 1356, 1355,
+    # 4230 within the +-2% of phase 9).  Block-local K-lines (K split)
+    # change the trajectory: those solves are held to the JAX package's
+    # counts and Error max on its jnp dist steps over (2, 2, 2), at 128^3
+    # and 64^3 (python3 tools/jax_dist_counts.py 128, ... 64; the host's
+    # CPU).  K-unsplit meshes solve whole lines: the serial count and
+    # Error max.
+    lines_128 = {"pcr_rb": (OMEGA, 1356), "pcr_rb_maf": (OMEGA, 1356),
+                 "pcr_j_esa": (OMEGA_L, 4232)}
+    jax_dist_128 = {"pcr_rb": (1379, 1.054138e-02),
+                    "pcr_rb_maf": (1379, 1.058282e-02),
+                    "pcr_j_esa": (4236, 6.126559e-02)}
+    jax_dist_64 = {"pcr_rb": 479, "pcr_rb_maf": 479, "pcr_j_esa": 1814}
+
+    def no_kernel(counts):
+        return not any(counts.values())
+
+    for div in ((1, 2, 2), (2, 2, 2)):
+        nb = div[0] * div[1] * div[2]
+        cm = make_mesh((128, 128, 128), devices=[dev] * nb, div=div)
+        form = "fastdiag" if div[0] == 1 else "pcr"
+        for name, (omega, serial) in lines_128.items():
+            maf = name.endswith("_maf")
+            p = Problem.poisson_cube(128, device=dev, maf=maf)
+            r, wall, cnt = drive_dist(name, omega, p, cm, "auto",
+                                      (k9.variant(form, maf),))
+            ek, lk = max_error_loc(p.grid, r.x)
+            s_ = solve(p, name, omega=omega, itr_max=10000)
+            es, _ = max_error_loc(p.grid, s_.x)
+            its, err_ref, ref = serial, es, "serial"
+            if form == "pcr":
+                (its, err_ref), ref = jax_dist_128[name], "JAX jnp dist"
+            check(abs(r.iters - its) <= its * 2 // 100,
+                  f"dist {name} {div}: {r.iters} vs {ref} {its}")
+            check(abs(ek / err_ref - 1) <= ERR_RTOL,
+                  f"dist {name} {div}: Error max {ek} vs {ref} {err_ref}")
+            also = "" if ref == "serial" else f"; serial {s_.iters}"
+            also_e = "" if ref == "serial" else f"; serial {es:e}"
+            print(f"solve_dist {name} 128^3 f32 omega {omega} {div} ({nb} blocks "
+                  f"on the card, K9 '{form}'): {r.iters} iterations ({ref} "
+                  f"{its}{also}), res {r.res:e}, Error max {ek:e} at {lk} ({ref} "
+                  f"{err_ref:e}{also_e}), wall {wall:.3f} s, launches {cnt} "
+                  f"{tag}", flush=True)
+            del p, r, s_
+        del cm
+    cm64 = make_mesh((64, 64, 64), devices=[dev] * 8, div=(2, 2, 2))
+    for name, (omega, _) in lines_128.items():
+        maf = name.endswith("_maf")
+        p = Problem.poisson_cube(64, device=dev, maf=maf)
+        r, wall, cnt = drive_dist(name, omega, p, cm64, "auto",
+                                  (k9.variant("pcr", maf),))
+        want = jax_dist_64[name]
+        check(abs(r.iters - want) <= want * 2 // 100,
+              f"dist {name} 64^3 (2, 2, 2): {r.iters} vs the JAX dist {want}")
+        print(f"solve_dist {name} 64^3 f32 (2, 2, 2): {r.iters} iterations (JAX "
+              f"jnp dist step {want}), wall {wall:.3f} s {tag}", flush=True)
+    # float64 and the MAF point sweeps run parallel/dist.py: plain torch on
+    # the card, no kernel of the port
+    p = Problem.poisson_cube(64, dtype=f64, device=dev)
+    r, wall, cnt = drive_dist("pcr_rb", OMEGA, p, cm64, "auto", ())
+    check(no_kernel(read_counts()), "f64 dist pcr_rb launched a kernel")
+    check(r.res < 1e-5, f"f64 dist pcr_rb: res {r.res}")
+    print(f"solve_dist pcr_rb 64^3 f64 (2, 2, 2) on parallel/dist.py: {r.iters} "
+          f"iterations, res {r.res:e}, wall {wall:.3f} s {tag}", flush=True)
+    for name, omega, serial, sync_mode in (("jacobi_maf", OMEGA_J, 5380, "auto"),
+                                           ("sor2sma_maf", OMEGA, 1813, "color")):
+        p = Problem.poisson_cube(128, device=dev, maf=True)
+        r, wall, cnt = drive_dist(name, omega, p, cm128, sync_mode, ())
+        check(no_kernel(read_counts()), f"dist {name} launched a kernel")
+        check(abs(r.iters - serial) <= serial * 2 // 100,
+              f"dist {name} 128^3: {r.iters} vs serial {serial}")
+        print(f"solve_dist {name} 128^3 f32 sync={sync_mode} (2, 2, 2) on "
+              f"parallel/dist.py: {r.iters} iterations (serial {serial}), wall "
+              f"{wall:.3f} s {tag}", flush=True)
+    del p, r, cm64
+    # K10's path: its own entry point (no solver dispatch takes it, as in
+    # the JAX package), 60 fixed sweeps at 128^3 against 60 of K5/K6
+    for maf in (False, True):
+        p = Problem.poisson_cube(128, device=dev, maf=maf)
+        for kind, omega in (("pcr_rb", OMEGA), ("pcr", OMEGA_L)):
+            step = k10.make_fused_pcr_step(kind, p.grid.shape_kij, f32, omega=omega,
+                                           b_is_zero=True, mc=p.mc)
+            sync()
+            zero_counts()
+            xf = step.unpad(fixed_sweeps(step, step.pad(p.x0), None, 60))
+            sync()
+            v = "fused_pcr" + ("_maf" if maf else "")
+            got = read_counts()[v]
+            check(got == (120 if kind == "pcr_rb" else 60),
+                  f"K10 {kind} maf={maf}: {got} launches")
+            path_launches[v] = path_launches.get(v, 0) + got
+            ref = get_fused_step(kind, p.grid, omega, mc=p.mc, b_is_zero=True)
+            xr = ref.unpad(fixed_sweeps(ref, ref.pad(p.x0), None, 60))
+            e = float((xf - xr).abs().max())
+            check(bool(torch.isfinite(xf).all()) and e <= 1e-4,
+                  f"K10 {kind} maf={maf}: |x - K5/K6| {e}")
+            print(f"K10 make_fused_pcr_step('{kind}') 128^3 f32 maf={maf}: 60 "
+                  f"sweeps in {got} launches, max |x - the K5/K6 sweeps| {e:.3e} "
+                  f"{tag}", flush=True)
+        del p, step, xf, ref, xr
+
+    # ---- 18. timing of the dist line path ---------------------------------------
+    stamp(18)
+    line_timing = {}
+    for n, divs, counts in ((128, ((2, 2, 2), (1, 2, 2)), (20, 200)),
+                            (512, ((2, 2, 2),), (4, 24))):
+        for div in divs:
+            cm = make_mesh((n, n, n), devices=[dev] * (div[0] * div[1] * div[2]),
+                           div=div)
+            for name, (omega, _) in lines_128.items():
+                kind = "pcr" if name == "pcr_j_esa" else "pcr_rb"
+                p = Problem.poisson_cube(n, device=dev, maf=name.endswith("_maf"))
+                step = dist_fused.make_dist_fused_step(p, cm, kind, omega,
+                                                       b_is_zero=True)
+                ms = per_iter_ms_state(
+                    step, lambda a: dist_fused.to_block_state(cm, a),
+                    p.grid.shape_kij, *counts)
+                check(ms > 0, f"dist timing {name} {n}^3 {div}: non-positive")
+                line_timing[(name, n, div)] = ms
+                print(f"timing dist {name} {n}^3 f32 {div} (K9 '{step.solver}', "
+                      f"{div[0] * div[1] * div[2]} blocks on the card): "
+                      f"{ms * 1e3:.3f} us/iteration, "
+                      f"{p.grid.num_inner / (ms * 1e-3) / 1e6:.1f} "
+                      f"Mcell-updates/s {tag}", flush=True)
+                del p, step
+            del cm
+
+    # K9 per call at the path's blocks (a 64^3 block of 128^3 over (2, 2,
+    # 2), origin (64, 64, 64); a (128, 64, 64) block over (1, 2, 2),
+    # origin (0, 64, 64)) and K10 at 128^3, colour 0, each against its twin
+    mc = Problem.poisson_cube(128, device=dev, maf=True).mc
+    k9calls = {}
+    for form, bsz, origin in (("pcr", (64, 64, 64), (64, 64, 64)),
+                              ("fastdiag", (128, 64, 64), (0, 64, 64))):
+        xb = rand(tuple(v + 2 for v in bsz), f32).to(dev)
+        for maf in (False, True):
+            kw = dict(omega=OMEGA, color=0, b_is_zero=True, maf=maf,
+                      mc=mc if maf else None, solver=form)
+            ks = k9.make_block_pcr(bsz, (128, 128, 128), f32, **kw)
+            ps = k9.make_block_pcr(bsz, (128, 128, 128), f32, plain=True, **kw)
+            tab = ks.block_tables(origin, dev) if maf else None
+            k9calls[k9.variant(form, maf)] = (
+                lambda ks=ks, xb=xb, tab=tab, o=origin: ks(xb, None, o, tab),
+                lambda ps=ps, xb=xb, tab=tab, o=origin: ps(xb, None, o, tab))
+    x10 = rand(sh, f32).to(dev)
+    tab10 = rb.maf_tables(mc, sh, f32)
+    k9calls["fused_pcr"] = (lambda: k10.fused_pcr(x10, None, OMEGA, 0),
+                            lambda: k10.fused_pcr_plain(x10, None, OMEGA, 0))
+    k9calls["fused_pcr_maf"] = (
+        lambda: k10.fused_pcr(x10, None, OMEGA, 0, tab=tab10),
+        lambda: k10.fused_pcr_plain(x10, None, OMEGA, 0, tab=tab10))
+    for name, (kfn, pfn) in k9calls.items():
+        kfn(), pfn()
+        sync()
+        p1 = events_ms(pfn, 3)
+        k1 = events_ms(kfn, 50)
+        k2 = events_ms(kfn, 50)
+        p2 = events_ms(pfn, 3)
+        per_call[name] = (min(k1, k2), min(p1, p2))
+        print(f"per call, f32 colour 0 ({'128^3' if name.startswith('fused') else 'the path block'}): "
+              f"{name} {per_call[name][0]:.4f} ms, plain twin "
+              f"{per_call[name][1]:.4f} ms {tag}")
+    check(bool(torch.isfinite(x10).all()), "K10 timing field not finite")
+    # their least work, colour 0 (half the lines) with b zero, over the rows
+    # a pass updates (the block at origin (64, 64, 64) has 63 inner rows and
+    # 63 x 63 inner columns; the (128, 64, 64) block 126 and 63 x 63):
+    # bytes, the block read once and the updated cells written once;
+    # operations, those of the CUDA bodies per updated row: the system (4
+    # constant, 15 MAF), each PCR stage (16 variable, pcr.cuh's
+    # pcr_solve_var; 5 on K10's tables, pcr_solve_tab), the final pair (6
+    # variable, 3 tables) and the relaxation with its dp^2 (5); K10's end
+    # folds add 4 a line; a Thomas line relaxation 14 (24 under MAF) a row,
+    # as K5/K6
+    pn9, pn10 = num_stage(64 + 2), num_stage(126)
+    blk, rows9 = 66**3, 63 * 63 * 63 / 2
+    fd_blk, fd_rows = 130 * 66 * 66, 126 * 63 * 63 / 2
+    lines10 = 126 * 126 / 2
+    var9 = 16 * (pn9 - 1) + 6 + 5
+    var10, tab10_ops = 16 * (pn10 - 1) + 6 + 5, 5 * (pn10 - 1) + 3 + 5
+    work.update({
+        "block_pcr": (4 * (blk + rows9), (4 + var9) * rows9),
+        "block_pcr_maf": (4 * (blk + rows9), (15 + var9) * rows9),
+        "block_pcr_fastdiag": (4 * (fd_blk + fd_rows), 14 * fd_rows),
+        "block_pcr_fastdiag_maf": (4 * (fd_blk + fd_rows), 24 * fd_rows),
+        "fused_pcr": (4 * (128**3 + inner / 2),
+                      (4 + tab10_ops) * inner / 2 + 4 * lines10),
+        "fused_pcr_maf": (4 * (128**3 + inner / 2),
+                          (15 + var10) * inner / 2 + 4 * lines10),
+    })
+
     rbpack_cu = "cubez_tpu_torch/csrc/rbpack.cu"
     sweeps_cu = "cubez_tpu_torch/csrc/sweeps.cu"
     rblines_cu = "cubez_tpu_torch/csrc/rblines.cu"
@@ -1090,6 +1389,10 @@ def main():
     k7_site = ("cubez_tpu/pallas_kernels/sweeps2x.py:480 via "
                "cubez_tpu/pallas_kernels/dist_rbpack.py:299")
     k8_site = "cubez_tpu/pallas_kernels/dist_sweeps.py:269"
+    dist_pcr_cu = "cubez_tpu_torch/csrc/dist_pcr.cu"
+    pcr_cu = "cubez_tpu_torch/csrc/pcr.cu"
+    k9_site = "cubez_tpu/pallas_kernels/dist_pcr.py:379"
+    k10_site = "cubez_tpu/pallas_kernels/pcr.py:414"
     meta = {
         "rb_color": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
         "rb_color_maf": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
@@ -1115,6 +1418,12 @@ def main():
         "block_sweep_both": (dist_sweeps_cu, k8_site),
         "block_sweep_interior": (dist_sweeps_cu, k8_site),
         "block_sweep_shell": (dist_sweeps_cu, k8_site),
+        "block_pcr": (dist_pcr_cu, k9_site),
+        "block_pcr_maf": (dist_pcr_cu, k9_site),
+        "block_pcr_fastdiag": (dist_pcr_cu, k9_site),
+        "block_pcr_fastdiag_maf": (dist_pcr_cu, k9_site),
+        "fused_pcr": (pcr_cu, k10_site),
+        "fused_pcr_maf": (pcr_cu, k10_site),
     }
     for name in meta:
         check(path_launches.get(name, 0) > 0, f"{name}: no path launched it")
@@ -1122,7 +1431,9 @@ def main():
     for name, (src, site) in meta.items():
         bms, by = bound(*work[name])
         # no single PyTorch call computes a red-black colour, a Jacobi sweep
-        # or a line relaxation: library_ms is null for every kernel here
+        # or a line relaxation (none solves a batch of tridiagonal systems;
+        # torch.linalg.solve on dense (n, n) systems is another algorithm
+        # with n times the work): library_ms is null for every kernel here
         kernels.append(
             {"name": name, "route": "cuda", "source": src, "replaces": site,
              "launches": path_launches[name], "max_abs_err": err[name],

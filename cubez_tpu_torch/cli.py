@@ -5,8 +5,9 @@
         [--device cuda|cpu] [--impl auto|plain]
 
 A process division ``gdv_x gdv_y gdv_z`` (or ``--dist``, the automatic
-division) runs ``solve_dist`` over a block mesh: blocks go round-robin
-over the visible CUDA devices (``--device cpu``: the host).
+division) runs ``solve_dist`` over a block mesh, for every solver the port
+runs, the line solvers included: blocks go round-robin over the visible
+CUDA devices (``--device cpu``: the host).
 
 Writes ``<solver>.txt`` (cz_Evaluate.cpp:210-218), prints the iteration and
 residual banner (cz_Evaluate.cpp:492-496) and the analytic ``Error max``

@@ -66,6 +66,8 @@ def _declare(lib):
     lib.cz_error_string.restype = ctypes.c_char_p
     lib.cz_line_threads_per_block.argtypes = []
     lib.cz_line_threads_per_block.restype = i32
+    lib.cz_pcr_threads_per_block.argtypes = []
+    lib.cz_pcr_threads_per_block.restype = i32
     for t in ("f32", "f64"):
         for name, args in (
             # rbpack.cu
@@ -92,6 +94,12 @@ def _declare(lib):
             ("block_sweep_max_blocks", [i32, ctypes.POINTER(i32)]),
             ("block_sweep", [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, f64,
                              ctypes.POINTER(i32), i32, i32, vp]),
+            # pcr.cu (K10) and dist_pcr.cu (K9)
+            ("fused_pcr", [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                           i32, f64, i32, i32, i32, i32, vp]),
+            ("block_pcr", [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                           i32, i32, f64, i32, ctypes.POINTER(i32), i32, i32,
+                           i32, vp]),
         ):
             fn = getattr(lib, f"cz_{name}_{t}")
             fn.argtypes = args

@@ -5,10 +5,14 @@ the counterpart of solvers.api.solve on a block mesh.
     cm = make_mesh(prob.grid.shape_kij, devices=["cuda:0"] * 8, div=(2, 2, 2))
     result = solve_dist(prob, cm, "sor2sma", omega=1.5, itr_max=10000)
 
-This slice runs the point solvers on their kernels: sor2sma and
+Routes as the JAX package does, with the port's kernels in the place of
+its fused Pallas steps: float32 with the standard mask runs sor2sma and
 sor2sma_maf on K7 (the packed path, dist_pack.py), jacobi and sor2sma on
-K8 (dist_fused.py), and runs the same driver and convergence logic as the
-serial path.
+K8 and the line solvers (pcr_rb, pcr_rb_esa, pcr_j_esa and their MAF
+forms) on K9 (dist_fused.py); everything else the JAX package runs on its
+jnp steps, float64, the MAF point sweeps off the packed path, jacobi with
+sync='overlap' and a non-standard mask, runs on parallel/dist.py.  Every
+route drives the same convergence logic as the serial path.
 """
 
 from __future__ import annotations
@@ -22,12 +26,11 @@ from ..core.problem import Problem
 from ..solvers.driver import EPS_DEFAULT, SolveResult, run_iterative
 from ..solvers.steps import require_ported
 from . import dist_fused, dist_pack
+from .dist import make_dist_step
 from .mesh import CubeMesh
 
 IMPLS = ("auto", "plain")
 SYNCS = ("auto", "pack", "color", "iter", "overlap")
-_LATER = ("slice 9b of ROADMAP.md (the dist line path, K9/K10 with "
-          "parallel/dist.py)")
 
 
 def solve_dist(
@@ -43,29 +46,37 @@ def solve_dist(
     check_every: Optional[int] = None,
     precond: Optional[str] = None,
 ) -> SolveResult:
-    """Run a point solver distributed over the mesh's blocks.
+    """Run a relaxation or line solver distributed over the mesh's blocks.
 
     The returned SolveResult.x is the assembled global (K, I, J) field on
     the device of ``problem.x0``.  ``sync`` selects the red-black halo
-    cadence: 'pack' is the packed path (K7 on blocks with a depth-2n ghost
-    ring, n iterations per exchange, owned cells bitwise the serial
-    result, so counts and the field at the stop equal the serial port's);
-    'color' exchanges before each colour (serial-equivalent) and 'iter'
-    once per iteration (the reference's semantics), both on K8; 'overlap'
-    is 'color' with the exchange overlapped with the interior sweep.
+    cadence of the point solvers: 'pack' is the packed path (K7 on blocks
+    with a depth-2n ghost ring, n iterations per exchange, owned cells
+    bitwise the serial result, so counts and the field at the stop equal
+    the serial port's); 'color' exchanges before each colour
+    (serial-equivalent) and 'iter' once per iteration (the reference's
+    semantics), both on K8; 'overlap' is 'color' with the exchange
+    overlapped with the interior sweep (parallel/dist.py's for jacobi).
     'auto' resolves to 'pack' where it applies, else 'color'.  An explicit
     'pack' raises ValueError where the packed path cannot run (not
-    sor2sma, float64, a nonzero inner right-hand side, odd blocks or
-    blocks thinner than the ring) instead of changing trajectories.
+    sor2sma, float64, a non-standard mask, a nonzero inner right-hand side,
+    odd blocks or blocks thinner than the ring) instead of changing
+    trajectories.  The line solvers exchange before each colour and run
+    K9, its 'fastdiag' form (Thomas on whole K-lines) where the mesh leaves
+    K unsplit, else its 'pcr' form (block-local lines with identity ghost
+    rows).
+
+    float64, the MAF point sweeps off the packed path, jacobi with
+    sync='overlap' and a non-standard mask run parallel/dist.py's steps,
+    plain torch operations on the blocks' devices, as the JAX package runs
+    them on its jnp steps.  The Krylov solvers (slice 4) and psor/pcr_gs
+    (slice 6), which the JAX package reaches only through auto-SPMD, raise
+    NotImplementedError naming their slice.
 
     ``impl``: 'auto' launches the kernels for CUDA blocks and runs the
     plain twins for CPU blocks; 'plain' runs the twins on any device.
-
-    What the JAX package runs through its jnp shard_map steps or
-    auto-SPMD, the line solvers, float64, the MAF point sweeps off the
-    packed path and a non-standard mask, raises NotImplementedError naming
-    slice 9b; the Krylov solvers name their slice, 4.  ``precond`` is
-    accepted for signature parity and unused by these solvers."""
+    ``precond`` is accepted for signature parity and unused by these
+    solvers."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     if sync not in SYNCS:
@@ -73,22 +84,20 @@ def solve_dist(
     kind, is_maf = require_ported(solver)
     g = problem.grid
     cmesh.block_shape(g.shape_kij)  # a grid the mesh does not divide
-    if kind not in ("jacobi", "sor2sma"):
-        raise NotImplementedError(f"solve_dist('{solver}') is {_LATER}")
     if is_maf and problem.mc is None:
         raise ValueError("MAF solver requested but Problem has no MafCoeffs")
     plain = impl == "plain"
     mc_problem = problem if is_maf else dataclasses.replace(problem, mc=None)
+    line = kind in dist_fused.LINE_KINDS
+    # the kernels' routes take what the JAX package fuses: float32 and the
+    # standard mask (its fused steps synthesize the inner mask)
+    kernels = g.dtype == torch.float32 and problem.msk_is_standard()
 
-    pack_ok = (kind == "sor2sma" and sync in ("auto", "pack")
-               and g.dtype == torch.float32)
+    pack_ok = kernels and kind == "sor2sma" and sync in ("auto", "pack")
     if sync == "pack" and not pack_ok:
         raise ValueError(
-            "sync='pack' applies only to sor2sma in float32; use sync='auto' "
-            "to fall back to 'color'")
-    if not problem.msk_is_standard():
-        raise NotImplementedError(
-            f"a non-standard mask needs a masked distributed sweep, {_LATER}")
+            "sync='pack' applies only to sor2sma in float32 with the standard "
+            "mask; use sync='auto' to fall back to 'color'")
     if pack_ok:
         pstep = dist_pack.make_dist_packed_step(mc_problem, cmesh, omega,
                                                 plain=plain)
@@ -105,28 +114,30 @@ def solve_dist(
                                             pstep.hs, device=problem.x0.device)
             return _finish(dataclasses.replace(result, x=x), history_path)
 
-    if g.dtype != torch.float32:
-        raise NotImplementedError(f"float64 solve_dist is {_LATER}")
-    if is_maf:
-        raise NotImplementedError(
-            f"'{solver}' off the packed path (sync={sync!r}, or a problem the "
-            f"packed path refuses) is {_LATER}")
     b_is_zero = problem.rhs_is_inner_zero()
-    if sync == "overlap":
-        if kind != "sor2sma":
-            raise NotImplementedError(f"sync='overlap' for '{solver}' is {_LATER}")
-        step = dist_fused.make_dist_fused_overlap_step(
-            problem, cmesh, omega, b_is_zero=b_is_zero, plain=plain)
-    else:
-        step = dist_fused.make_dist_fused_step(
-            problem, cmesh, kind, omega, b_is_zero=b_is_zero, plain=plain,
-            sync="iter" if sync == "iter" else "color")
-    xs = dist_fused.to_block_state(cmesh, problem.x0)
-    bs = None if b_is_zero else dist_fused.to_block_state(cmesh, problem.rhs)
-    result = run_iterative(step, xs, bs, g.res_normal, itr_max, eps,
-                           check_every=check_every)
-    x = dist_fused.from_block_state(cmesh, result.x, g.shape_kij,
-                                    device=problem.x0.device)
+    step = None
+    if kernels and (line or not is_maf):
+        if sync != "overlap":
+            step = dist_fused.make_dist_fused_step(
+                mc_problem, cmesh, kind, omega, b_is_zero=b_is_zero, plain=plain,
+                sync="iter" if sync == "iter" else "color")
+        elif kind == "sor2sma":
+            step = dist_fused.make_dist_fused_overlap_step(
+                problem, cmesh, omega, b_is_zero=b_is_zero, plain=plain)
+    if step is not None:
+        xs = dist_fused.to_block_state(cmesh, problem.x0)
+        bs = None if b_is_zero else dist_fused.to_block_state(cmesh, problem.rhs)
+        result = run_iterative(step, xs, bs, g.res_normal, itr_max, eps,
+                               check_every=check_every)
+        x = dist_fused.from_block_state(cmesh, result.x, g.shape_kij,
+                                        device=problem.x0.device)
+        return _finish(dataclasses.replace(result, x=x), history_path)
+
+    step = make_dist_step(mc_problem, cmesh, solver, omega,
+                          overlap=sync == "overlap")
+    result = run_iterative(step, cmesh.shard(problem.x0), cmesh.shard(problem.rhs),
+                           g.res_normal, itr_max, eps, check_every=check_every)
+    x = cmesh.gather(result.x, device=problem.x0.device)
     return _finish(dataclasses.replace(result, x=x), history_path)
 
 

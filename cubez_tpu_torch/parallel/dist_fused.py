@@ -1,21 +1,23 @@
-"""Distributed point-solver steps on ghosted blocks with K8 (PyTorch port of
-the point part of ``cubez_tpu/parallel/dist_fused.py``).
+"""Distributed steps on ghosted blocks with K8 (point sweeps) and K9 (line
+relaxation) (PyTorch port of ``cubez_tpu/parallel/dist_fused.py``).
 
 State: one (lk+2, li+2, lj+2) block per mesh block (cuda_kernels/
 dist_sweeps.py's layout).  An iteration is the reference's multi-rank
 skeleton, kernel, Comm_S(X, 1), Comm_SUM_1 (cz_Poisson.cpp:39-79):
 
     refresh the six width-1 ghost planes (halo.refresh_ghosts)
-    -> one K8 launch per block
+    -> one K8 or K9 launch per block
     -> the residual, folded over the blocks in float64.
 
 Red-black cadence (``sync``): 'color' refreshes before each colour and is
 serial-equivalent; 'iter' refreshes once and runs both colours in one
 pass, the reference's semantics, unstable at omega 1.5 on small blocks.
 ``make_dist_fused_overlap_step`` collects the ghosts while the interior
-runs.  The mesh's ``block_shape`` takes the place of the JAX module's
-``_block_shape``.  The line solvers and MAF point sweeps of the JAX module
-are not ported yet (ROADMAP.md slice 9b).
+runs.  The line kinds ('pcr', 'pcr_rb') refresh before each colour and
+run K9 on the same blocks, its 'fastdiag' form on K-unsplit meshes and its
+'pcr' form otherwise; MAF point sweeps have no step here, as in the JAX
+package (parallel/dist.py runs them).  The mesh's ``block_shape`` takes
+the place of the JAX module's ``_block_shape``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import contextlib
 import torch
 
 from ..core.problem import Problem
-from ..cuda_kernels import dist_sweeps
+from ..cuda_kernels import dist_pcr, dist_sweeps
 from .halo import psum_all
 from .halo import refresh_ghosts as _refresh_ghosts
 from .mesh import CubeMesh
@@ -50,9 +52,14 @@ def make_dist_fused_step(problem: Problem, cmesh: CubeMesh, kind: str,
     (``to_block_state``), r2 a 0-d float64 tensor on block 0's device.
     ``kind``: 'jacobi' (out of place: the step writes blocks it owns, two
     per mesh block in turn, and never the state it is handed, apart from
-    its ghost planes) or 'sor2sma' (in place; ``sync`` 'color' or 'iter').
-    ``plain`` runs K8's twin on any device.  None for MAF, as in the JAX
-    package (its explicit jnp step covers MAF point sweeps)."""
+    its ghost planes), 'sor2sma' (in place; ``sync`` 'color' or 'iter'),
+    'pcr' (the line-Jacobi pass on K9, out of place as jacobi) or 'pcr_rb'
+    (K9 per colour, in place; ``sync`` does not apply).  ``problem.mc``
+    selects MAF for the line kinds.  ``plain`` runs the twins on any
+    device.  None for the MAF point sweeps, as in the JAX package (its
+    explicit jnp step covers them)."""
+    if kind in LINE_KINDS:
+        return _make_line_step(problem, cmesh, kind, omega, b_is_zero, plain)
     if problem.mc is not None:
         return None
     if kind not in dist_sweeps.KINDS:
@@ -71,22 +78,8 @@ def make_dist_fused_step(problem: Problem, cmesh: CubeMesh, kind: str,
                                                **kw)]
 
     if kind == "jacobi":
-        bufs = []  # two blocks per mesh block, made at the first call
-
-        def step(xs, bstate):
-            _refresh_ghosts(xs, cmesh)
-            out = [None] * len(xs)  # the twins return new blocks
-            if xs[0].is_cuda and not plain:
-                if not bufs:
-                    bufs.extend([torch.empty_like(x) for x in xs]
-                                for _ in range(2))
-                # write the set that is not xs; a foreign state (the start,
-                # or the driver's snapshot in its replay) is only read
-                out = bufs[1] if xs[0].data_ptr() == bufs[0][0].data_ptr() \
-                    else bufs[0]
-            res = [sweeps[0](x, bb, o, out=ob)
-                   for x, bb, o, ob in zip(xs, _bl(bstate, xs), origins, out)]
-            return [r[0] for r in res], psum_all([r[1] for r in res])
+        step = _out_of_place(cmesh, plain, origins, [None] * cmesh.size,
+                             lambda x, bb, o, t, ob: sweeps[0](x, bb, o, out=ob))
     else:
 
         def step(xs, bstate):
@@ -104,6 +97,81 @@ def make_dist_fused_step(problem: Problem, cmesh: CubeMesh, kind: str,
 
 def _bl(bstate, xs):
     return [None] * len(xs) if bstate is None else bstate
+
+
+def _out_of_place(cmesh: CubeMesh, plain: bool, origins, tabs, sweep):
+    """A step around ``sweep(x, b, origin, tab, out) -> (block, r2)`` that
+    writes blocks it owns, two per mesh block in turn, and never the state
+    it is handed, apart from its ghost planes."""
+    bufs = []  # two blocks per mesh block, made at the first call
+
+    def step(xs, bstate):
+        _refresh_ghosts(xs, cmesh)
+        out = [None] * len(xs)  # the twins return new blocks
+        if xs[0].is_cuda and not plain:
+            if not bufs:
+                bufs.extend([torch.empty_like(x) for x in xs] for _ in range(2))
+            # write the set that is not xs; a foreign state (the start, or
+            # the driver's snapshot in its replay) is only read
+            out = bufs[1] if xs[0].data_ptr() == bufs[0][0].data_ptr() else bufs[0]
+        res = [sweep(x, bb, o, t, ob) for x, bb, o, t, ob
+               in zip(xs, _bl(bstate, xs), origins, tabs, out)]
+        return [r[0] for r in res], psum_all([r[1] for r in res])
+
+    return step
+
+
+LINE_KINDS = ("pcr", "pcr_rb")
+
+
+def _make_line_step(problem: Problem, cmesh: CubeMesh, kind: str, omega: float,
+                    b_is_zero: bool, plain: bool):
+    """The line kinds on K9: its 'fastdiag' form where the mesh leaves K
+    unsplit and the builder accepts, else its 'pcr' form
+    (dist_fused.py:399-409 of the JAX package).  The ghosts are refreshed
+    before each colour in the order Z, X, Y (the JAX line layout refreshes
+    X, Z, Y); only edge ghosts differ, and K9 reads none of them into an
+    update: ghost rows are identity rows and ghost columns are never
+    lines."""
+    g = problem.grid
+    gshape = g.shape_kij
+    bs = cmesh.block_shape(gshape)
+    origins = cmesh.offsets(gshape)
+    mc = problem.mc
+    kw = dict(omega=omega, b_is_zero=b_is_zero, maf=mc is not None, mc=mc,
+              plain=plain)
+
+    def make(c):
+        s = None
+        if cmesh.div[0] == 1:
+            s = dist_pcr.make_block_pcr(bs, gshape, g.dtype, color=c,
+                                        solver="fastdiag", **kw)
+        if s is None:
+            s = dist_pcr.make_block_pcr(bs, gshape, g.dtype, color=c, **kw)
+        return s
+
+    sweeps = [make(c) for c in ((0, 1) if kind == "pcr_rb" else (None,))]
+    tabs = [None] * cmesh.size
+    if mc is not None:
+        tabs = [sweeps[0].block_tables(o, d)
+                for o, d in zip(origins, cmesh.devices)]
+
+    if kind == "pcr":
+        step = _out_of_place(cmesh, plain, origins, tabs, sweeps[0])
+    else:
+
+        def step(xs, bstate):
+            r2 = []
+            for sweep in sweeps:
+                _refresh_ghosts(xs, cmesh)
+                r2 += [sweep(x, bb, o, t)[1] for x, bb, o, t
+                       in zip(xs, _bl(bstate, xs), origins, tabs)]
+            return xs, psum_all(r2)
+
+    step.solver = sweeps[0].solver
+    step.iters_per_call = 1
+    step.single = step
+    return step
 
 
 def _collect_ghosts(xs, cmesh: CubeMesh):

@@ -52,15 +52,31 @@ def test_cli_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,where", [
-    (["--dist"], "slice 9"), (["--profile"], "slice 8"),
-    (["--dump", "f.sph"], "slice 7"), (["2", "1", "1"], "slice 9"),
+    (["--profile"], "slice 8"), (["--dump", "f.sph"], "slice 7"),
 ])
 def test_cli_later_slices_raise(extra, where, tmp_path, monkeypatch):
-    """Options of later slices, and a distributed line solve (slice 9b),
-    raise naming their slice."""
+    """Options of later slices raise naming their slice."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=where):
         main(["8", "8", "8", "pcr_rb", "10", "1.5", "--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("extra,div", [
+    (["--dist"], "(1, 1, 1)"), (["2", "1", "1"], "(1, 2, 1)"),
+])
+def test_cli_dist_line_solver_runs(extra, div, tmp_path, monkeypatch, capsys):
+    """A distributed line solve (``--dist``, or a division that leaves K
+    unsplit, so K9's 'fastdiag' form) stops at the serial CLI's count."""
+    for name, more in (("serial", []), ("dist", extra)):
+        d = tmp_path / name
+        d.mkdir()
+        monkeypatch.chdir(d)
+        assert main(["16", "16", "16", "pcr_rb", "10000", "1.5", *more,
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"mesh division (z,x,y) = {div} on 1 device(s)" in out
+    iters = [ln for ln in out.splitlines() if ln.startswith("Iter = ")]
+    assert len(iters) == 2 and iters[0].split()[2] == iters[1].split()[2]
 
 
 def test_cli_division_runs_solve_dist(tmp_path, monkeypatch, capsys):

@@ -414,3 +414,125 @@ def test_solve_dist_on_cuda_matches_cpu_twin(dev, solver, sync, omega, iters):
     if sync == "pack":
         rs = czt.solve(g, solver, omega=omega, itr_max=10000)
         assert torch.equal(rg.x, rs.x)
+
+
+# ---- slice 9b: K9 (dist_pcr) and K10 (pcr) ----------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_b", [False, True])
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("color", [0, 1, None])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (13, 11, 18)])
+def test_k10_matches_plain_twin(dev, shape, color, maf, with_b, dtype):
+    """K10 against its twin (offset 1): float32 bitwise, float64 within
+    1e-14, residuals to rtol 1e-5; the line-Jacobi pass never writes x."""
+    from cubez_tpu_torch.cuda_kernels import pcr as k10
+    from cubez_tpu_torch.cuda_kernels.rbpack import maf_tables
+
+    tab = None
+    if maf:
+        K, I, J = shape
+        mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                                device=dev)[0].mc
+        tab = maf_tables(mc, shape, dtype)
+    gen = torch.Generator().manual_seed(21)
+    x = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    b = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    b = b if with_b else None
+    keep = x.clone()
+    before = k10.fused_pcr.launches
+    xk, rk = k10.fused_pcr(x if color is None else x.clone(), b, OMEGA, color, 1, tab)
+    xp, rp = k10.fused_pcr_plain(keep.clone(), b, OMEGA, color, 1, tab)
+    torch.cuda.synchronize()
+    assert k10.fused_pcr.launches == before + 1
+    assert torch.equal(x, keep)
+    assert float((xk - xp).abs().max()) <= (0.0 if dtype == torch.float32 else 1e-14)
+    torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_b", [False, True])
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("color", [0, 1, None])
+@pytest.mark.parametrize("form", ["pcr", "fastdiag"])
+def test_k9_matches_plain_twin(dev, form, color, maf, with_b, dtype):
+    """K9 against its twin on a ghosted block at a nonzero origin whose
+    faces hold the physical boundary: float32 bitwise, float64 within
+    1e-14, residuals to rtol 1e-5."""
+    from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
+
+    bs, gs, origin = {"pcr": ((10, 12, 14), (20, 24, 28), (10, 0, 14)),
+                      "fastdiag": ((20, 12, 14), (20, 24, 28), (0, 12, 0))}[form]
+    mc = None
+    if maf:
+        K, I, J = gs
+        mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                                device=dev)[0].mc
+    sweep = k9.make_block_pcr(bs, gs, dtype, omega=OMEGA, color=color, offset=1,
+                              b_is_zero=not with_b, maf=maf, mc=mc, solver=form)
+    twin = k9.make_block_pcr(bs, gs, dtype, omega=OMEGA, color=color, offset=1,
+                             b_is_zero=not with_b, maf=maf, mc=mc, solver=form,
+                             plain=True)
+    tab = sweep.block_tables(origin, dev) if maf else None
+    gen = torch.Generator().manual_seed(23)
+    shape = tuple(s + 2 for s in bs)
+    x = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    b = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    keep = x.clone()
+    before = k9.block_pcr.launches
+    xk, rk = sweep(x if color is None else x.clone(), b, origin, tab)
+    xp, rp = twin(keep.clone(), b, origin, tab)
+    torch.cuda.synchronize()
+    assert k9.block_pcr.launches == before + 1
+    assert torch.equal(x, keep)
+    assert float((xk - xp).abs().max()) <= (0.0 if dtype == torch.float32 else 1e-14)
+    torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("solver,div,form", [
+    ("pcr_rb", (2, 2, 2), "block_pcr"),
+    ("pcr_rb_maf", (2, 2, 2), "block_pcr_maf"),
+    ("pcr_j_esa", (2, 2, 2), "block_pcr"),
+    ("pcr_rb", (1, 2, 4), "block_pcr_fastdiag"),
+    ("pcr_rb_maf", (1, 2, 4), "block_pcr_fastdiag_maf"),
+])
+def test_solve_dist_lines_on_cuda_go_through_k9(dev, solver, div, form):
+    """A float32 line solve_dist on CUDA blocks with the standard mask
+    launches K9 (its launch counter, by form), stops where the CPU twins
+    stop, with bitwise equal fields."""
+    from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
+
+    maf = solver.endswith("_maf")
+    omega = 1.0 if solver == "pcr_j_esa" else OMEGA
+    g = czt.Problem.poisson_cube(32, device=dev, maf=maf)
+    c = czt.Problem.poisson_cube(32, device="cpu", maf=maf)
+    cg = czt.make_mesh((32, 32, 32), devices=[dev] * 8, div=div)
+    cc = czt.make_mesh((32, 32, 32), devices=["cpu"] * 8, div=div)
+    before = k9.block_pcr.variant_launches.get(form, 0)
+    rg = czt.solve_dist(g, cg, solver, omega=omega, itr_max=10000)
+    assert k9.block_pcr.variant_launches.get(form, 0) > before
+    rc = czt.solve_dist(c, cc, solver, omega=omega, itr_max=10000)
+    assert rg.iters == rc.iters
+    assert torch.equal(rg.x.cpu(), rc.x)
+
+
+def test_wrappers_never_hand_a_cuda_tensor_to_a_twin(dev, monkeypatch):
+    """K9's and K10's wrappers launch their kernels for CUDA tensors: with
+    every twin made to raise, the wrappers still run."""
+    from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
+    from cubez_tpu_torch.cuda_kernels import pcr as k10
+
+    def boom(*a, **k):
+        raise AssertionError("a twin ran on a CUDA tensor")
+
+    for mod, name in ((k10, "fused_pcr_plain"), (k10, "pcr_solve"),
+                      (k10, "pcr_solve_var"), (k9, "block_pcr_plain"),
+                      (k9, "pcr_solve_var"), (k9, "relax_dp")):
+        monkeypatch.setattr(mod, name, boom)
+    x = torch.rand(12, 10, 11, device=dev)
+    for color in (0, 1, None):
+        k10.fused_pcr(x.clone(), None, OMEGA, color)
+        for form, gs in (("pcr", (20, 16, 22)), ("fastdiag", (10, 16, 22))):
+            k9.block_pcr(x.clone(), None, form, color, OMEGA, (0, 8, 0, *gs, 0))
+    torch.cuda.synchronize()

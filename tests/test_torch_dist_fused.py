@@ -4,9 +4,11 @@ interpreted ``make_block_sweep`` on one block with nonzero offsets, the
 fused steps against JAX's jnp shard_map steps (the tolerance of
 tests/test_dist_fused.py: field within 1e-6, r2 within rtol 1e-5 for
 jacobi and 1e-4 for sor2sma), the 'iter' cadence bitwise against JAX's
-interpreted fused step, the dryrun's convergence proofs at 32^3 and the
-refusals of what this slice does not port."""
+interpreted fused step, the dryrun's convergence proofs at 32^3, the
+routes of parallel/dist.py and K9 against JAX's solve_dist, and the
+refusals of what the port does not run yet."""
 
+import dataclasses
 import functools
 
 import jax
@@ -169,27 +171,57 @@ def test_dryrun_fused_proofs_at_32():
 
 
 @pytest.mark.parametrize("solver,kw,exc,match", [
-    ("pcr_rb", {}, NotImplementedError, "slice 9b"),
-    ("pcr_j_esa", {}, NotImplementedError, "slice 9b"),
     ("pbicgstab", {}, NotImplementedError, "slice 4"),
-    ("jacobi_maf", {}, NotImplementedError, "slice 9b"),
-    ("sor2sma_maf", {"sync": "color"}, NotImplementedError, "slice 9b"),
-    ("jacobi", {"sync": "overlap"}, NotImplementedError, "slice 9b"),
-    ("sor2sma", {"dtype": torch.float64}, NotImplementedError, "slice 9b"),
-    ("sor2sma", {"mask": True}, NotImplementedError, "slice 9b"),
+    ("psor", {}, NotImplementedError, "slice 6"),
+    ("pcr", {}, NotImplementedError, "slice 6"),
     ("sor2sma", {"impl": "pallas"}, ValueError, "impl"),
     ("sor2sma", {"sync": "lowsync"}, ValueError, "sync"),
+    ("sor2sma", {"sync": "pack", "dtype": torch.float64}, ValueError, "pack"),
 ])
 def test_unported_paths_raise(solver, kw, exc, match):
-    """What the JAX package runs on its jnp steps or auto-SPMD raises,
-    naming the slice that brings it; it never runs the serial solver."""
+    """What the JAX package reaches only through auto-SPMD (Krylov, the
+    exact serial orders) raises, naming the slice that brings it; it never
+    runs the serial solver.  Bad options raise ValueError."""
     p = czt.Problem.poisson_cube(N, dtype=kw.pop("dtype", torch.float32),
                                  device="cpu", maf=solver.endswith("_maf"))
-    if kw.pop("mask", False):
-        msk = p.msk.clone()
-        msk[5, 6, 7] = 0.0
-        p = czt.Problem(grid=p.grid, x0=p.x0, rhs=p.rhs, msk=msk,
-                        rhs_inner_zero=True)
     with pytest.raises(exc, match=match):
         czt.solve_dist(p, _tmesh(N, (2, 2, 2)), solver, omega=1.0, itr_max=4,
                        **kw)
+
+
+@pytest.mark.parametrize("solver,omega,kw", [
+    ("pcr_rb", OMEGA, {}),
+    ("pcr_j_esa", 1.0, {}),
+    ("jacobi_maf", 0.8, {}),
+    ("sor2sma_maf", OMEGA, {"sync": "color"}),
+    ("jacobi", 0.8, {"sync": "overlap"}),
+    ("sor2sma", OMEGA, {"dtype": torch.float64}),
+    ("sor2sma", OMEGA, {"mask": True}),
+])
+def test_dist_paths_match_jax_solve_dist(solver, omega, kw):
+    """The routes this file's earlier refusals covered now run: the line
+    solvers on K9's twins, the rest on parallel/dist.py, each to tolerance
+    at 16^3 over (2, 2, 2) with the JAX package's count (its jnp dist
+    steps) and history within rtol 1e-3 (1e-9 in float64)."""
+    dtype = kw.pop("dtype", torch.float32)
+    maf = solver.endswith("_maf")
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    jp = JProblem.poisson_cube(N, dtype=jdt, maf=maf)
+    p = czt.Problem.poisson_cube(N, dtype=dtype, device="cpu", maf=maf)
+    if kw.pop("mask", False):
+        msk = np.asarray(jp.msk).copy()
+        msk[5, 6, 7] = 0.0
+        jp = dataclasses.replace(jp, msk=jnp.asarray(msk))
+        p = czt.Problem(grid=p.grid, x0=p.x0, rhs=p.rhs, msk=torch.tensor(msk),
+                        rhs_inner_zero=True)
+    from cubez_tpu.parallel.api import solve_dist as j_solve_dist
+
+    rj = j_solve_dist(jp, _jmesh(N, (2, 2, 2)), solver, omega=omega,
+                      itr_max=3000, **kw)
+    rt = czt.solve_dist(p, _tmesh(N, (2, 2, 2)), solver, omega=omega,
+                        itr_max=3000, **kw)
+    assert rt.iters == rj.iters
+    np.testing.assert_allclose(rt.history.numpy(), np.asarray(rj.history),
+                               rtol=1e-9 if dtype == torch.float64 else 1e-3)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float(np.abs(rt.x.numpy() - np.asarray(rj.x)).max()) < tol

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Profile the port's distributed solves (solve_dist) at 128^3 float32 over
-a (2, 2, 2) mesh of eight blocks on one NVIDIA GPU: device time per
+"""Profile the port's distributed solves (solve_dist) at 128^3 float32 on
+one NVIDIA GPU, the blocks of the mesh all on that card: device time per
 iteration by kernel, the launches, and the busy share (device time over
 the solve's wall time).
 
-    python3 tools/prof_dist.py
+    python3 tools/prof_dist.py [solver ...]
 
-For sor2sma pack (K7), sor2sma_maf pack (K7-MAF), sor2sma 'color' and
-'overlap' (K8) and jacobi at omega 0.8 (K8) it runs one warm-up solve,
-three timed solves and one solve under ``torch.profiler``.  It prints the
+Over a (2, 2, 2) mesh of eight blocks: sor2sma pack (K7), sor2sma_maf
+pack (K7-MAF), sor2sma 'color' and 'overlap' (K8), jacobi at omega 0.8
+(K8), and the line solvers pcr_rb and pcr_rb_maf at omega 1.5 and
+pcr_j_esa at 1.0 (K9's 'pcr' form); over (1, 2, 2) the same three line
+solvers (K9's 'fastdiag' form).  Solver names on the command line keep
+only those solves.  For each it runs one warm-up solve, three timed solves
+and one solve under ``torch.profiler``.  It prints the
 card's name and power limit, one summary line and the top device rows per
 solve, and the summaries as one JSON object on the last line.
 """
@@ -30,12 +34,16 @@ from cubez_tpu_torch.cuda_kernels import _build  # noqa: E402
 from prof_lines import _device_rows  # noqa: E402
 
 N = 128
-SOLVES = (("sor2sma", 1.5, "pack"), ("sor2sma_maf", 1.5, "pack"),
-          ("sor2sma", 1.5, "color"), ("sor2sma", 1.5, "overlap"),
-          ("jacobi", 0.8, "auto"))
+# (solver, omega, sync, mesh division)
+SOLVES = tuple((n, w, s, (2, 2, 2)) for n, w, s in (
+    ("sor2sma", 1.5, "pack"), ("sor2sma_maf", 1.5, "pack"),
+    ("sor2sma", 1.5, "color"), ("sor2sma", 1.5, "overlap"),
+    ("jacobi", 0.8, "auto"))) + tuple(
+    (n, w, "auto", div) for div in ((2, 2, 2), (1, 2, 2))
+    for n, w in (("pcr_rb", 1.5), ("pcr_rb_maf", 1.5), ("pcr_j_esa", 1.0)))
 
 
-def main():
+def main(names=()):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -43,12 +51,15 @@ def main():
                           text=True, check=True).stdout.strip()
     print(card)
     _build.load()
-    cm = make_mesh((N, N, N), devices=["cuda:0"] * 8, div=(2, 2, 2))
-    out = {"card": card, "n": N, "div": cm.div}
+    out = {"card": card, "n": N}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for name, omega, sync in SOLVES:
+    for name, omega, sync, div in SOLVES:
+        if names and name not in names:
+            continue
         p = Problem.poisson_cube(N, device="cuda", maf=name.endswith("_maf"))
+        cm = make_mesh((N, N, N), devices=["cuda:0"] * (div[0] * div[1] * div[2]),
+                       div=div)
 
         def run(itr_max):
             r = solve_dist(p, cm, name, omega=omega, itr_max=itr_max, sync=sync)
@@ -72,7 +83,7 @@ def main():
              "device_us_per_iteration": dev_us / r.iters,
              "device_launches_per_iteration":
                  sum(row[1] for row in rows) / r.iters}
-        label = f"{name} {sync}"
+        label = f"{name} {sync} {div}"
         print(f"== {label}: {json.dumps(s)}  [{card}]")
         for key, cnt, t in rows[:8]:
             print(f"   {key:70s} n={cnt:6d} total {t / 1e3:9.3f} ms  "
@@ -82,4 +93,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

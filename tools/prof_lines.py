@@ -7,9 +7,11 @@ time over the solve's wall time).
 
 For each of pcr_rb (K5), pcr_rb_maf (K5-MAF) and pcr_j_esa at omega 1.0
 (K6's line-Jacobi) it runs one warm-up solve, three timed solves, and one
-solve under ``torch.profiler``.  It prints the card's name and power limit,
-one summary line and the top device rows per solver, and the summaries as
-one JSON object on the last line.
+solve under ``torch.profiler``; then 60 fixed sweeps of K10's entry point
+(``make_fused_pcr_step('pcr_rb')``, constant and MAF) under the profiler.
+It prints the card's name and power limit, one summary line and the top
+device rows per run, and the summaries as one JSON object on the last
+line.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from cubez_tpu_torch import Problem, solve  # noqa: E402
 from cubez_tpu_torch.cuda_kernels import _build  # noqa: E402
+from cubez_tpu_torch.cuda_kernels import pcr as k10  # noqa: E402
+from cubez_tpu_torch.solvers.driver import fixed_sweeps  # noqa: E402
 
 N = 128
 SOLVES = (("pcr_rb", 1.5), ("pcr_rb_maf", 1.5), ("pcr_j_esa", 1.0))
@@ -81,6 +85,28 @@ def main():
              "device_us_per_iteration": dev_us / r.iters}
         print(f"== {name}: {json.dumps(s)}  [{card}]")
         for key, cnt, t in rows[:10]:
+            print(f"   {key:70s} n={cnt:6d} total {t / 1e3:9.3f} ms  "
+                  f"per call {t / cnt:8.2f} us")
+        out[name] = s
+    for maf in (False, True):
+        p = Problem.poisson_cube(N, device="cuda", maf=maf)
+        step = k10.make_fused_pcr_step("pcr_rb", p.grid.shape_kij, omega=1.5,
+                                       b_is_zero=True, mc=p.mc)
+        fixed_sweeps(step, step.pad(p.x0), None, 6)  # warm-up
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fixed_sweeps(step, step.pad(p.x0), None, 60)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = _device_rows(prof)
+        dev_us = sum(row[2] for row in rows)
+        name = "K10 pcr_rb" + (" MAF" if maf else "")
+        s = {"sweeps": 60, "wall_profiled_s": wall, "device_ms": dev_us / 1e3,
+             "busy_share": dev_us / 1e6 / wall,
+             "device_us_per_iteration": dev_us / 60}
+        print(f"== {name}: {json.dumps(s)}  [{card}]")
+        for key, cnt, t in rows[:4]:
             print(f"   {key:70s} n={cnt:6d} total {t / 1e3:9.3f} ms  "
                   f"per call {t / cnt:8.2f} us")
         out[name] = s
