@@ -58,34 +58,44 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     (pcr_rb's count to the JAX package's CLI's +-2%, its Error max at rtol
     1e-2), ``124 124 124 sor2sma 10000 1.5 2 2 2`` (solve_dist over a
     (2, 2, 2) mesh on the card), which must give the serial CLI's count,
-    and ``124 124 124 pcr_rb 10000 1.5 2 2 2`` (K9 on K-split blocks), whose
-    count is recorded beside the serial CLI's;
+    and ``124 124 124 pcr_rb 10000 1.5 2 2 2`` (K9 on K-split blocks), held
+    to the JAX package's jnp dist step on that mesh (1317 iterations +-2%,
+    Error max 9.888023e-03 at rtol 1e-2; tools/jax_dist_counts.py);
 12. times each step and its plain twin at 128^3 and 512^3 (sor2sma on the
     n = 6 chain, jacobi on K4, sor2sma_maf on the MAF pair, the MAF chain
     at n = 6, pcr_rb on K5, pcr_rb_maf on K5-MAF, pcr_j_esa on K6; CUDA
     events, distinct random starts, long-minus-short differencing), and
     every kernel per call against its twin at 128^3;
-13. the distributed kernels against their twins, one block at a time at
-    nonzero offsets: K7 (dist_rb_sweeps) on the (2, 2, 2) blocks of 128^3
+13. the distributed kernels against their twins: one block at a time at
+    nonzero offsets, K7 (dist_rb_sweeps) on the (2, 2, 2) blocks of 128^3
     at n = 2, 6 and the one-iteration form n = 1 on the depth-12 ring,
-    K7-MAF at n = 2 and 3, K8 (block_sweep) in every variant with and
-    without b, and a (2, 1, 1) mesh ragged in J; float32 bitwise, float64
-    within 1e-14, residuals to rtol 1e-5;
+    K7-MAF at n = 2 and 3, K8 (block_sweep: its launch over one block) in
+    every variant with and without b, and a (2, 1, 1) mesh ragged in J;
+    then K8 over all eight blocks of 128^3 in one launch (sweep_blocks),
+    every variant, the face exchange (one launch, and gather then scatter)
+    and the residual fold (dist_halo.py); float32 bitwise, float64 within
+    1e-14, residuals to rtol 1e-5, the fold to 1e-15;
 14. solve_dist with eight blocks on the card (``make_mesh(..., devices=
     ["cuda:0"] * 8)``), each path with the counts zeroed just before and
     read just after: at 128^3 f32 sor2sma pack (the serial count exactly,
     history to rtol 1e-5, the field at the stop bit for bit), sor2sma_maf
     pack (the same), sor2sma 'color' (the serial count), jacobi at omega
-    0.8 (the serial count), 'overlap' (the 'color' field bit for bit), 60
-    fixed sweeps of 'iter' against its twin (bitwise); 512^3 f32 sor2sma
-    pack (the serial 512^3 count and field);
-15. times the distributed steps per iteration at 128^3 and 512^3 over
-    (2, 2, 2) (pack and 'color') beside the serial n = 6 chain, and K7 and
-    K8 per call at 128^3's blocks against their twins;
-16. K9 (block_pcr) against its twin in every variant, 'pcr' and
-    'fastdiag', constant and MAF, colours 0, 1 and the line-Jacobi pass,
-    zero and streamed b, on the 64^3 blocks of 128^3 over (2, 2, 2) and a
-    (128, 64, 64) block over (1, 2, 2), and K10 (fused_pcr) at 128^3 in
+    0.8 (the serial count), 'overlap' (the 'color' field bit for bit), each
+    with its K8/K9 step launches an iteration, 60 fixed sweeps of 'iter'
+    against its twin (bitwise; 60 launches each of K8, exchange and fold);
+    512^3 f32 sor2sma pack (the serial 512^3 count and field);
+15. times the distributed steps per iteration at 128^3 (pack, 'color',
+    'overlap', jacobi, with the device time, device launches and busy
+    share an iteration under torch.profiler) and 512^3 (pack, 'color')
+    over (2, 2, 2) beside the serial n = 6 chain, K7 per call on a 64^3
+    block, and K8, the exchange and the fold per launch over the eight
+    blocks, against their twins;
+16. K9 (block_pcr, its launch over one block) against its twin in every
+    variant, 'pcr' and 'fastdiag', constant and MAF, colours 0, 1 and the
+    line-Jacobi pass, zero and streamed b, on the 64^3 blocks of 128^3 over
+    (2, 2, 2) and a (128, 64, 64) block over (1, 2, 2); K9 over all the
+    blocks of each mesh in one launch (pcr_blocks: 'pcr' on the eight,
+    'fastdiag' on the four), every variant; K10 (fused_pcr) at 128^3 in
     every variant; float32 bitwise, float64 within 1e-14;
 17. the dist line path, each solve with the counts zeroed just before and
     read just after: solve_dist at 128^3 f32 of pcr_rb, pcr_rb_maf (omega
@@ -100,8 +110,10 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     (make_fused_pcr_step 'pcr_rb' and 'pcr', constant and MAF) for 60
     fixed sweeps, within 1e-4 of K5/K6's;
 18. times the dist line steps per iteration at 128^3 over (2, 2, 2) and
-    (1, 2, 2) and at 512^3 over (2, 2, 2), and K9 and K10 per call at the
-    path's shapes against their twins.
+    (1, 2, 2) (with the device time, device launches and busy share an
+    iteration) and at 512^3 over (2, 2, 2), K9 per launch over all the
+    blocks of the path's meshes and K10 per call at 128^3, against their
+    twins.
 
 The line before the last is a JSON object with one entry per kernel
 variant (its bound: the larger of the bytes it must move over 3.35 TB/s
@@ -134,6 +146,14 @@ HIST64 = ROOT / "tests" / "torch_ref_histories"
 ERR_F64_128 = {"pcr_rb": 1.006167e-02, "pcr_rb_maf": 1.006167e-02,
                "pcr_j_esa": 6.054431e-02}
 JAX_CLI_124 = {"pcr_rb": (1294, 9.358376e-03)}
+# (Iter, Error max) of the JAX package's jnp dist step at 124^3 over
+# (2, 2, 2), eps 1e-5, Problem.poisson_cube, float32, the CLI's own
+# settings: ``python3 tools/jax_dist_counts.py 124 2 2 2`` on the host's
+# CPU printed "pcr_rb 124^3 over (2, 2, 2) omega 1.5: 1317 iterations, res
+# 9.973868e-06, Error max 9.888023e-03".  Block-local K-lines change the
+# trajectory, so the CLI's ``124 124 124 pcr_rb 10000 1.5 2 2 2`` is held
+# to these (count +-2%, Error max at ERR_RTOL), as phase 17 holds 64^3.
+JAX_DIST_CLI_124 = {"pcr_rb": (1317, 9.888023e-03)}
 ERR_RTOL = 1e-2
 OMEGA = 1.5
 OMEGA_J = 0.8
@@ -179,7 +199,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     from cubez_tpu_torch import (Grid, Problem, make_mesh, max_error_loc, solve,
                                  solve_dist)
-    from cubez_tpu_torch.cuda_kernels import _build
+    from cubez_tpu_torch.cuda_kernels import _build, dist_halo
     from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
     from cubez_tpu_torch.cuda_kernels import dist_rbpack as k7
     from cubez_tpu_torch.cuda_kernels import dist_sweeps as k8
@@ -214,6 +234,7 @@ def main():
         for w in (k8.block_sweep, k9.block_pcr):
             w.launches = 0
             w.variant_launches = {}
+        dist_halo.halo_exchange.launches = dist_halo.fold_partials.launches = 0
 
     def read_counts():
         out = {}
@@ -224,7 +245,14 @@ def main():
             out["block_sweep_" + v] = k8.block_sweep.variant_launches.get(v, 0)
         for v in k9_variants:
             out[v] = k9.block_pcr.variant_launches.get(v, 0)
+        out["halo_exchange"] = dist_halo.halo_exchange.launches
+        out["fold_partials"] = dist_halo.fold_partials.launches
         return out
+
+    # the launches of the dist K8/K9 steps: exchange, sweep, fold
+    dist_launch_names = ("halo_exchange", "fold_partials") + tuple(
+        "block_sweep_" + v for v in ("jacobi", "colour", "both", "interior",
+                                     "shell")) + k9_variants
 
     path_launches = {}  # variant -> launches in the first path that runs it
 
@@ -625,7 +653,7 @@ def main():
             ("pcr_rb", "pcr_rb", "1.5", ()),
             ("sor2sma_dist", "sor2sma", "1.5", ("2", "2", "2")),
             ("pcr_rb_dist", "pcr_rb", "1.5", ("2", "2", "2")))
-    cli_iters = {}
+    cli_iters, cli_err = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for label, solver, omega, gdv in runs:
@@ -651,6 +679,8 @@ def main():
                     print(f"CLI 124^3 {label}: {ln.strip()}")
                 if ln.startswith("Iter ="):
                     cli_iters[label] = int(ln.split()[2])
+                if ln.startswith("Error max"):
+                    cli_err[label] = float(ln.split()[3])
                 if solver not in JAX_CLI_124 or label != solver:
                     continue
                 its, err_j = JAX_CLI_124[solver]
@@ -668,11 +698,17 @@ def main():
     check(cli_iters["sor2sma_dist"] == cli_iters["sor2sma"],
           f"CLI 124^3: solve_dist {cli_iters['sor2sma_dist']} iterations, "
           f"serial {cli_iters['sor2sma']}")
-    # block-local K-lines (K split) change the trajectory: no serial count
-    # applies, so the count is recorded beside the serial CLI's (phase 17
-    # gates the K-split counts at 64^3)
-    print(f"CLI 124^3 pcr_rb over (2, 2, 2): {cli_iters['pcr_rb_dist']} "
-          f"iterations (serial CLI {cli_iters['pcr_rb']}) {tag}", flush=True)
+    # block-local K-lines (K split) change the trajectory: the count and
+    # Error max are held to the JAX package's jnp dist step on that mesh
+    its, err_j = JAX_DIST_CLI_124["pcr_rb"]
+    it, e = cli_iters["pcr_rb_dist"], cli_err["pcr_rb_dist"]
+    check(abs(it - its) <= its * 2 // 100,
+          f"CLI pcr_rb over 2 2 2: {it} iterations vs the JAX dist {its}")
+    check(abs(e / err_j - 1) <= ERR_RTOL,
+          f"CLI pcr_rb over 2 2 2: Error max {e} vs the JAX dist {err_j}")
+    print(f"CLI 124^3 pcr_rb over (2, 2, 2): {it} iterations (JAX jnp dist "
+          f"{its}; serial CLI {cli_iters['pcr_rb']}), Error max {e:e} (JAX "
+          f"dist {err_j:e}) {tag}", flush=True)
 
     # ---- 12. timing ------------------------------------------------------------
     stamp(12)
@@ -903,10 +939,63 @@ def main():
                         check(rel <= 1e-5, f"residual differs by rtol {rel}: "
                               f"{where}")
                         n_cmp += 1
+    # the launches the dist steps make: K8 over all eight blocks of 128^3
+    # in one launch, the face exchange (one launch, and gather then
+    # scatter) and the residual fold, each against its twin
+    check(_build.load().cz_dist_max_blocks() == dist_halo.MAX_BLOCKS,
+          "csrc/dist_halo.cu and dist_halo.py disagree on MAX_BLOCKS")
+    cm8 = make_mesh((128, 128, 128), devices=[dev] * 8, div=(2, 2, 2))
+    org8, bs8 = cm8.offsets((128, 128, 128)), (64, 64, 64)
+    table8 = [[-1 if cm8.neighbor(b, f // 2, 1 if f % 2 else -1) is None
+               else cm8.neighbor(b, f // 2, 1 if f % 2 else -1) for f in range(6)]
+              for b in range(8)]
+    for dtype in (f32, f64):
+        tol = 0.0 if dtype == f32 else 1e-14
+        xs = [rand(k8.block_layout(bs8), dtype).to(dev) for _ in range(8)]
+        bb8 = [rand(k8.block_layout(bs8), dtype).to(dev) for _ in range(8)]
+        for kind, colour, region in k8_variants:
+            for bb in (None, bb8):
+                res = dist_halo.Residual(dev)
+                res.start()
+                got = k8.sweep_blocks([x.clone() for x in xs], bb, kind, colour,
+                                      OMEGA, org8, (128, 128, 128), 1, region,
+                                      res=res)
+                r_k = res.total()
+                want, r_p = k8.sweep_blocks_plain([x.clone() for x in xs], bb, kind,
+                                                  colour, OMEGA, org8,
+                                                  (128, 128, 128), 1, region)
+                sync()
+                name = "block_sweep_" + k8.variant(kind, colour, region)
+                e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                err[name] = max(err.get(name, 0.0), e)
+                rel = float((r_k - sum(r_p)).abs() / sum(r_p))
+                where = (f"K8 8 blocks {kind} {colour} {region} "
+                         f"b={bb is not None} {dtype}")
+                check(e <= tol, f"field differs by {e}: {where}")
+                check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
+                n_cmp += 1
+        want = dist_halo.halo_exchange_plain([x.clone() for x in xs], table8)
+        got = dist_halo.halo_exchange([x.clone() for x in xs], table8)
+        st = torch.empty(8 * dist_halo.staging_size(bs8), dtype=dtype, device=dev)
+        split = [x.clone() for x in xs]
+        dist_halo.halo_exchange(split, table8, "gather", st)
+        dist_halo.halo_exchange(split, table8, "scatter", st)
+        sync()
+        e = max(float((g - w).abs().max()) for g, w in zip(got + split, want * 2))
+        err["halo_exchange"] = max(err.get("halo_exchange", 0.0), e)
+        check(e == 0.0, f"halo_exchange differs by {e} ({dtype})")
+        parts = rand(4000, dtype).abs().to(dev)
+        e = abs(float(dist_halo.fold_partials(parts, 4000))
+                - float(dist_halo.fold_partials_plain(parts)))
+        err["fold_partials"] = max(err.get("fold_partials", 0.0), e)
+        check(e <= 1e-15 * float(parts.double().sum()), f"fold differs by {e}")
+        n_cmp += 2
+    del xs, bb8, got, want, split, st
     print(f"distributed kernels vs plain twins: {n_cmp} comparisons passed "
           f"(f32 bitwise, f64 <= 1e-14); max |field diff| "
           + ", ".join(f"{k} {v:.3e}" for k, v in sorted(err.items())
-                      if k.startswith(("dist", "block"))), flush=True)
+                      if k.startswith(("dist", "block", "halo", "fold"))),
+          flush=True)
 
     # ---- 14. solve_dist on the card --------------------------------------------
     stamp(14)
@@ -926,7 +1015,11 @@ def main():
             check(counts[v] > 0, f"solve_dist {name} {sync_mode}: {v} idle")
             path_launches.setdefault(v, counts[v])
         check(bool(torch.isfinite(r.x).all()), f"solve_dist {name}: not finite")
-        return r, wall, {v: counts[v] for v in variants}
+        cnt = {v: counts[v] for v in variants}
+        step_launches = sum(counts[v] for v in dist_launch_names)
+        if step_launches:  # run_iterative's stopping-chunk replay included
+            cnt["K8/K9 step launches an iteration"] = round(step_launches / r.iters, 3)
+        return r, wall, cnt
 
     def hist_rtol(a, b):
         return float(((a.history - b.history) / b.history).abs().max())
@@ -948,7 +1041,8 @@ def main():
     p = Problem.poisson_cube(128, device=dev)
     s_ = solve(p, "sor2sma", omega=OMEGA, itr_max=10000)
     rc, wall, cnt = drive_dist("sor2sma", OMEGA, p, cm128, "color",
-                               ("block_sweep_colour",))
+                               ("block_sweep_colour", "halo_exchange",
+                                "fold_partials"))
     check(rc.iters == s_.iters, f"color: {rc.iters} vs serial {s_.iters}")
     print(f"solve_dist sor2sma 128^3 f32 color {dist_tag}: {rc.iters} "
           f"iterations (serial {s_.iters}), history rtol {hist_rtol(rc, s_):.2e},"
@@ -981,13 +1075,15 @@ def main():
     zero_counts()
     xk = fixed_sweeps(it_k, dist_fused.to_block_state(cm128, p.x0), None, 60)
     sync()
-    path_launches["block_sweep_both"] = read_counts()["block_sweep_both"]
-    check(path_launches["block_sweep_both"] == 480,
-          f"iter: {path_launches['block_sweep_both']} launches")
+    c_iter = read_counts()
+    path_launches["block_sweep_both"] = c_iter["block_sweep_both"]
+    check(c_iter["block_sweep_both"] == 60 and c_iter["halo_exchange"] == 60
+          and c_iter["fold_partials"] == 60, f"iter: {c_iter} launches")
     xp = fixed_sweeps(it_p, dist_fused.to_block_state(cm128, p.x0), None, 60)
     check(all(torch.equal(a, b) for a, b in zip(xk, xp)), "iter: != twin")
     print(f"solve_dist sor2sma 128^3 f32 iter {dist_tag}: 60 fixed sweeps in "
-          f"480 launches, bitwise the twin {tag}", flush=True)
+          f"60 K8 launches (one over all eight blocks an iteration), 60 "
+          f"exchanges, 60 folds, bitwise the twin {tag}", flush=True)
     del xk, xp, p
 
     p512 = Problem.poisson_cube(512, device=dev)
@@ -1023,33 +1119,74 @@ def main():
             med.setdefault(count, []).append(statistics.median(ts))
         return (min(med[long]) - min(med[short])) / (long - short)
 
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def busy_share(step, to_state, shape, iters=100):
+        """(device us, device launches, busy share) an iteration over a
+        window of ``iters`` fixed sweeps under torch.profiler: the device's
+        own events (kernels, copies) against the window's wall."""
+        x = to_state(torch.rand(shape, device=dev, generator=dgen))
+        x = fixed_sweeps(step, x, None, 4)  # warm-up
+        sync()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fixed_sweeps(step, x, None, iters)
+            sync()
+            wall = time.perf_counter() - t0
+        us = n_ev = 0
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t = getattr(ev, "self_device_time_total", None)
+            t = ev.self_cuda_time_total if t is None else t
+            if t > 0:
+                us += t
+                n_ev += ev.count
+        check(us > 0, "the profiler recorded no device time")
+        return us / iters, n_ev / iters, us / 1e6 / wall
+
     dist_timing = {}
     for n, counts in ((128, {"serial": (60, 600), "pack": (60, 600),
-                             "color": (20, 200)}),
+                             "color": (20, 200), "overlap": (20, 200),
+                             "jacobi": (20, 200)}),
                       (512, {"serial": (12, 72), "pack": (12, 72),
                              "color": (6, 36)})):
         p = Problem.poisson_cube(n, device=dev)
         cm = make_mesh((n, n, n), devices=[dev] * 8, div=(2, 2, 2))
         ser = get_fused_step("sor2sma", p.grid, OMEGA, b_is_zero=True)
         pk = dist_pack.make_dist_packed_step(p, cm, OMEGA)
-        co = dist_fused.make_dist_fused_step(p, cm, "sor2sma", OMEGA,
-                                             b_is_zero=True)
-        for label, step, to_state in (
-                ("serial", ser, ser.pad),
-                ("pack", pk, lambda a: dist_pack.to_packed_state(cm, a, pk.hs)),
-                ("color", co, lambda a: dist_fused.to_block_state(cm, a))):
+        blocks = lambda a: dist_fused.to_block_state(cm, a)  # noqa: E731
+        steps = (
+            ("serial", ser, ser.pad),
+            ("pack", pk, lambda a: dist_pack.to_packed_state(cm, a, pk.hs)),
+            ("color", dist_fused.make_dist_fused_step(p, cm, "sor2sma", OMEGA,
+                                                      b_is_zero=True), blocks),
+            ("overlap", dist_fused.make_dist_fused_overlap_step(
+                p, cm, OMEGA, b_is_zero=True), blocks),
+            ("jacobi", dist_fused.make_dist_fused_step(p, cm, "jacobi", OMEGA_J,
+                                                       b_is_zero=True), blocks))
+        for label, step, to_state in steps:
+            if label not in counts:
+                continue
             ms = per_iter_ms_state(step, to_state, p.grid.shape_kij, *counts[label])
             check(ms > 0, f"dist timing {label} {n}^3: non-positive")
             dist_timing[(label, n)] = ms
+            prof = ""
+            if n == 128 and label not in ("serial", "pack"):
+                d_us, d_n, share = busy_share(step, to_state, p.grid.shape_kij)
+                prof = (f", device {d_us:.2f} us and {d_n:.2f} device launches "
+                        f"an iteration, busy share {share:.3f}")
             print(f"timing dist {label} {n}^3 f32 (n={step.iters_per_call} per "
                   f"call{'' if label == 'serial' else ', (2, 2, 2) on the card'}"
                   f"): {ms * 1e3:.3f} us/iteration, "
-                  f"{p.grid.num_inner / (ms * 1e-3) / 1e6:.1f} Mcell-updates/s "
-                  f"{tag}", flush=True)
-        del p, cm, ser, pk, co
+                  f"{p.grid.num_inner / (ms * 1e-3) / 1e6:.1f} Mcell-updates/s"
+                  f"{prof} {tag}", flush=True)
+        del p, cm, ser, pk, steps
 
-    # K7 and K8 per call on 128^3's (2, 2, 2) blocks (64^3 owned, origin
-    # (64, 64, 64)), each against its twin in turns
+    # K7 per call on a 64^3 block of 128^3 over (2, 2, 2) (origin (64, 64,
+    # 64)); K8, the exchange and the fold per launch over all eight blocks;
+    # each against its twin in turns
     bsz, gsz, origin = (64, 64, 64), (128, 128, 128), (64, 64, 64)
     mc = Problem.poisson_cube(128, device=dev, maf=True).mc
     k7c = k7.make_dist_packed_sweepnx(bsz, gsz, omega=OMEGA, n=6)
@@ -1061,22 +1198,32 @@ def main():
     e7, e7m = k7.ext_dims(bsz, k7c.hs), k7.ext_dims(bsz, k7m.hs)
     x7 = rand((2, e7[0], e7[3], e7[2]), f32).to(dev)
     x7m = rand((2, e7m[0], e7m[3], e7m[2]), f32).to(dev)
-    x8 = rand(k8.block_layout(bsz), f32).to(dev)
-    o8 = torch.empty_like(x8)
-    geom8 = (*origin, *gsz, 0)
+    x8 = [rand(k8.block_layout(bsz), f32).to(dev) for _ in range(8)]
+    o8 = [torch.empty_like(x) for x in x8]
+    res8 = dist_halo.Residual(dev)
 
     def k8call(kind, colour, region, plain):
-        if plain:
-            return lambda: k8.block_sweep_plain(x8, None, kind, colour, OMEGA,
-                                                geom8, region)
-        return lambda: k8.block_sweep(x8, None, kind, colour, OMEGA, geom8,
-                                      region, out=o8 if kind == "jacobi" else None)
+        # one launcher, as a step keeps it: its arguments built once
+        launch = k8.BlockSweeps(kind, colour, OMEGA, org8, gsz, 0, region)
 
+        def run():
+            res8.start()
+            launch(x8, None, o8 if kind == "jacobi" else None, res8, plain)
+            return res8.total()
+        return run
+
+    parts8 = torch.rand(2 * 576, device=dev, generator=dgen)
+    st8 = torch.empty(8 * dist_halo.staging_size(bsz), device=dev)
     dcalls = {
         "dist_rb_sweeps": (lambda: k7c(x7, origin), lambda: k7p(x7, origin)),
         "dist_rb_sweeps_maf": (lambda: k7m(x7m, origin, tab7),
                                lambda: k7mp(x7m, origin, tab7)),
+        "halo_exchange": (lambda ex=dist_halo.Exchange(table8): ex(x8),
+                          lambda: dist_halo.halo_exchange_plain(x8, table8)),
+        "fold_partials": (lambda: dist_halo.fold_partials(parts8, parts8.numel()),
+                          lambda: dist_halo.fold_partials_plain(parts8)),
     }
+    library = {"fold_partials": lambda: parts8.sum(dtype=torch.float64)}
     for kind, colour, region in (("jacobi", None, "all"), ("sor2sma", 0, "all"),
                                  ("sor2sma", None, "all"),
                                  ("sor2sma", 0, "interior"),
@@ -1090,28 +1237,38 @@ def main():
         k1 = events_ms(kfn, 50)
         k2 = events_ms(kfn, 50)
         p2 = events_ms(pfn, 5)
-        per_call[name] = (min(k1, k2), min(p1, p2))
-        print(f"per call on a 64^3 block of 128^3 (2, 2, 2), f32: {name} "
-              f"{per_call[name][0]:.4f} ms, plain twin {per_call[name][1]:.4f} ms "
-              f"{tag}")
-    check(all(bool(torch.isfinite(t).all()) for t in (x7, x7m, x8)),
+        lib_ms = None
+        if name in library:
+            library[name]()
+            lib_ms = events_ms(library[name], 50)
+        per_call[name] = (min(k1, k2), min(p1, p2), lib_ms)
+        what = ("a 64^3 block of 128^3 (2, 2, 2)" if name.startswith("dist_rb")
+                else "the eight 64^3 blocks of 128^3 (2, 2, 2) in one launch")
+        print(f"per call on {what}, f32: {name} {per_call[name][0]:.4f} ms, plain "
+              f"twin {per_call[name][1]:.4f} ms"
+              + ("" if lib_ms is None else f", library {lib_ms:.4f} ms") + f" {tag}")
+    check(all(bool(torch.isfinite(t).all()) for t in [x7, x7m] + x8),
           "dist timing fields not finite")
     # their least work: K7 reads and writes the extended block once, n
-    # iterations over its interior; K8 reads the ghosted block and writes
-    # what it updates (the shell pass: the shell, the ghost planes and the
-    # layer inside)
-    gb = 4 * 66**3
+    # iterations over its interior; K8 reads the eight ghosted blocks and
+    # writes what it updates (the shell pass: the shell, the ghost planes
+    # and the layer inside); the exchange reads and writes the 24 faces that
+    # have a neighbour; the fold reads its partials
+    gb = 8 * 4 * 66**3
     shell = 64**3 - 62**3
     work.update({
         "dist_rb_sweeps": (2 * 4 * e7[0] * e7[1] * e7[2],
                            6 * 11 * (e7[0] - 2) * (e7[1] - 2) * (e7[2] - 2)),
         "dist_rb_sweeps_maf": (2 * 4 * e7m[0] * e7m[1] * e7m[2],
                                2 * 20 * (e7m[0] - 2) * (e7m[1] - 2) * (e7m[2] - 2)),
-        "block_sweep_jacobi": (2 * gb, 11 * 64**3),
-        "block_sweep_colour": (1.5 * gb, 11 * 64**3 / 2),
-        "block_sweep_both": (2 * gb, 11 * 64**3),
-        "block_sweep_interior": (4 * 64**3 + 2 * 62**3, 11 * 62**3 / 2),
-        "block_sweep_shell": (4 * (66**3 - 60**3) + 2 * shell, 11 * shell / 2),
+        "block_sweep_jacobi": (2 * gb, 8 * 11 * 64**3),
+        "block_sweep_colour": (1.5 * gb, 8 * 11 * 64**3 / 2),
+        "block_sweep_both": (2 * gb, 8 * 11 * 64**3),
+        "block_sweep_interior": (8 * (4 * 64**3 + 2 * 62**3), 8 * 11 * 62**3 / 2),
+        "block_sweep_shell": (8 * (4 * (66**3 - 60**3) + 2 * shell),
+                              8 * 11 * shell / 2),
+        "halo_exchange": (2 * 4 * 24 * 64 * 64, 0),
+        "fold_partials": (4 * parts8.numel() + 8, parts8.numel()),
     })
 
     # ---- 16. K9 and K10 against their twins -------------------------------------
@@ -1157,6 +1314,46 @@ def main():
                                 check(rel <= 1e-5,
                                       f"residual differs by rtol {rel}: {where}")
                                 n_cmp += 1
+    # K9 over all the blocks of a mesh in one launch against the batched
+    # twin: the 'pcr' form on the eight blocks of (2, 2, 2), the 'fastdiag'
+    # form on the four of (1, 2, 2)
+    for div, form in (((2, 2, 2), "pcr"), ((1, 2, 2), "fastdiag")):
+        gsz = (128, 128, 128)
+        cmk = make_mesh(gsz, devices=[dev] * (div[0] * div[1] * div[2]), div=div)
+        bsz, orgs = cmk.block_shape(gsz), cmk.offsets(gsz)
+        for dtype in (f32, f64):
+            tol = 0.0 if dtype == f32 else 1e-14
+            mc = stretched_mc(gsz, dtype)
+            xs = [rand(tuple(v + 2 for v in bsz), dtype).to(dev) for _ in orgs]
+            bbs = [rand(tuple(v + 2 for v in bsz), dtype).to(dev) for _ in orgs]
+            for maf in (False, True):
+                tabs = None
+                if maf:
+                    tabs = [k9.block_maf_tables(mc, o, bsz, gsz, dtype, form).to(dev)
+                            for o in orgs]
+                for colour in (0, 1, None):
+                    for bb in (None, bbs):
+                        res = dist_halo.Residual(dev)
+                        res.start()
+                        got = k9.pcr_blocks([x.clone() for x in xs], bb, form, colour,
+                                            OMEGA, orgs, gsz, 1, tabs, res=res)
+                        r_k = res.total()
+                        want, r_p = k9.pcr_blocks_plain(
+                            [x.clone() for x in xs], bb, form, colour, OMEGA, orgs,
+                            gsz, 1, tabs)
+                        sync()
+                        name = k9.variant(form, maf)
+                        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                        err[name] = max(err.get(name, 0.0), e)
+                        rel = float((r_k - sum(r_p)).abs() / sum(r_p))
+                        where = (f"K9 {len(orgs)} blocks {form} maf={maf} "
+                                 f"colour={colour} b={bb is not None} {dtype}")
+                        check(all(bool(torch.isfinite(g).all()) for g in got),
+                              f"non-finite field: {where}")
+                        check(e <= tol, f"field differs by {e}: {where}")
+                        check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
+                        n_cmp += 1
+        del cmk, xs, bbs, got, want
     sh = (128, 128, 128)
     for dtype in (f32, f64):
         tol = 0.0 if dtype == f32 else 1e-14
@@ -1306,31 +1503,50 @@ def main():
                     p.grid.shape_kij, *counts)
                 check(ms > 0, f"dist timing {name} {n}^3 {div}: non-positive")
                 line_timing[(name, n, div)] = ms
+                prof = ""
+                if n == 128:
+                    d_us, d_n, share = busy_share(
+                        step, lambda a: dist_fused.to_block_state(cm, a),
+                        p.grid.shape_kij)
+                    prof = (f", device {d_us:.2f} us and {d_n:.2f} device "
+                            f"launches an iteration, busy share {share:.3f}")
                 print(f"timing dist {name} {n}^3 f32 {div} (K9 '{step.solver}', "
                       f"{div[0] * div[1] * div[2]} blocks on the card): "
                       f"{ms * 1e3:.3f} us/iteration, "
                       f"{p.grid.num_inner / (ms * 1e-3) / 1e6:.1f} "
-                      f"Mcell-updates/s {tag}", flush=True)
+                      f"Mcell-updates/s{prof} {tag}", flush=True)
                 del p, step
             del cm
 
-    # K9 per call at the path's blocks (a 64^3 block of 128^3 over (2, 2,
-    # 2), origin (64, 64, 64); a (128, 64, 64) block over (1, 2, 2),
-    # origin (0, 64, 64)) and K10 at 128^3, colour 0, each against its twin
+    # K9 per launch over all the blocks of the path's meshes (the eight 64^3
+    # blocks of 128^3 over (2, 2, 2), the four (128, 64, 64) blocks over
+    # (1, 2, 2)) and K10 at 128^3, colour 0, each against its twin
     mc = Problem.poisson_cube(128, device=dev, maf=True).mc
     k9calls = {}
-    for form, bsz, origin in (("pcr", (64, 64, 64), (64, 64, 64)),
-                              ("fastdiag", (128, 64, 64), (0, 64, 64))):
-        xb = rand(tuple(v + 2 for v in bsz), f32).to(dev)
+    res9 = dist_halo.Residual(dev)
+    for form, div in (("pcr", (2, 2, 2)), ("fastdiag", (1, 2, 2))):
+        gsz = (128, 128, 128)
+        cmk = make_mesh(gsz, devices=[dev] * (div[0] * div[1] * div[2]), div=div)
+        bsz, orgs = cmk.block_shape(gsz), cmk.offsets(gsz)
+        xb = [rand(tuple(v + 2 for v in bsz), f32).to(dev) for _ in orgs]
         for maf in (False, True):
-            kw = dict(omega=OMEGA, color=0, b_is_zero=True, maf=maf,
-                      mc=mc if maf else None, solver=form)
-            ks = k9.make_block_pcr(bsz, (128, 128, 128), f32, **kw)
-            ps = k9.make_block_pcr(bsz, (128, 128, 128), f32, plain=True, **kw)
-            tab = ks.block_tables(origin, dev) if maf else None
-            k9calls[k9.variant(form, maf)] = (
-                lambda ks=ks, xb=xb, tab=tab, o=origin: ks(xb, None, o, tab),
-                lambda ps=ps, xb=xb, tab=tab, o=origin: ps(xb, None, o, tab))
+            tabs = None
+            if maf:
+                tabs = [k9.block_maf_tables(mc, o, bsz, gsz, f32, form).to(dev)
+                        for o in orgs]
+            scr = [k9.make_scratch(x.shape, f32, dev, form, 0, maf) for x in xb]
+
+            def call(plain, xb=xb, tabs=tabs, scr=scr, orgs=orgs, form=form):
+                # one launcher, as a step keeps it: its arguments built once
+                launch = k9.BlockPcr(form, 0, OMEGA, orgs, gsz, 0, tabs, scr)
+
+                def run():
+                    res9.start()
+                    launch(xb, None, None, res9, plain)
+                    return res9.total()
+                return run
+
+            k9calls[k9.variant(form, maf)] = (call(False), call(True))
     x10 = rand(sh, f32).to(dev)
     tab10 = rb.maf_tables(mc, sh, f32)
     k9calls["fused_pcr"] = (lambda: k10.fused_pcr(x10, None, OMEGA, 0),
@@ -1346,14 +1562,14 @@ def main():
         k2 = events_ms(kfn, 50)
         p2 = events_ms(pfn, 3)
         per_call[name] = (min(k1, k2), min(p1, p2))
-        print(f"per call, f32 colour 0 ({'128^3' if name.startswith('fused') else 'the path block'}): "
+        print(f"per call, f32 colour 0 ({'128^3' if name.startswith('fused') else 'all the blocks of the path mesh, one launch'}): "
               f"{name} {per_call[name][0]:.4f} ms, plain twin "
               f"{per_call[name][1]:.4f} ms {tag}")
     check(bool(torch.isfinite(x10).all()), "K10 timing field not finite")
     # their least work, colour 0 (half the lines) with b zero, over the rows
-    # a pass updates (the block at origin (64, 64, 64) has 63 inner rows and
-    # 63 x 63 inner columns; the (128, 64, 64) block 126 and 63 x 63):
-    # bytes, the block read once and the updated cells written once;
+    # a pass updates (every inner point of 128^3 sits in one block's line,
+    # so half of 126^3 rows on either mesh):
+    # bytes, the blocks read once and the updated cells written once;
     # operations, those of the CUDA bodies per updated row: the system (4
     # constant, 15 MAF), each PCR stage (16 variable, pcr.cuh's
     # pcr_solve_var; 5 on K10's tables, pcr_solve_tab), the final pair (6
@@ -1361,8 +1577,8 @@ def main():
     # folds add 4 a line; a Thomas line relaxation 14 (24 under MAF) a row,
     # as K5/K6
     pn9, pn10 = num_stage(64 + 2), num_stage(126)
-    blk, rows9 = 66**3, 63 * 63 * 63 / 2
-    fd_blk, fd_rows = 130 * 66 * 66, 126 * 63 * 63 / 2
+    blk, rows9 = 8 * 66**3, 126**3 / 2
+    fd_blk, fd_rows = 4 * 130 * 66 * 66, 126**3 / 2
     lines10 = 126 * 126 / 2
     var9 = 16 * (pn9 - 1) + 6 + 5
     var10, tab10_ops = 16 * (pn10 - 1) + 6 + 5, 5 * (pn10 - 1) + 3 + 5
@@ -1393,6 +1609,7 @@ def main():
     pcr_cu = "cubez_tpu_torch/csrc/pcr.cu"
     k9_site = "cubez_tpu/pallas_kernels/dist_pcr.py:379"
     k10_site = "cubez_tpu/pallas_kernels/pcr.py:414"
+    dist_halo_cu = "cubez_tpu_torch/csrc/dist_halo.cu"
     meta = {
         "rb_color": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
         "rb_color_maf": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
@@ -1424,21 +1641,26 @@ def main():
         "block_pcr_fastdiag_maf": (dist_pcr_cu, k9_site),
         "fused_pcr": (pcr_cu, k10_site),
         "fused_pcr_maf": (pcr_cu, k10_site),
+        # no pallas_call: the JAX package exchanges by lax.ppermute and folds
+        # by lax.psum; these launches take their place on one card
+        "halo_exchange": (dist_halo_cu, "cubez_tpu/parallel/halo.py:36"),
+        "fold_partials": (dist_halo_cu, "cubez_tpu/parallel/halo.py:60"),
     }
     for name in meta:
         check(path_launches.get(name, 0) > 0, f"{name}: no path launched it")
     kernels = []
     for name, (src, site) in meta.items():
         bms, by = bound(*work[name])
-        # no single PyTorch call computes a red-black colour, a Jacobi sweep
-        # or a line relaxation (none solves a batch of tridiagonal systems;
+        # no single PyTorch call computes a red-black colour, a Jacobi sweep,
+        # a line relaxation (none solves a batch of tridiagonal systems;
         # torch.linalg.solve on dense (n, n) systems is another algorithm
-        # with n times the work): library_ms is null for every kernel here
+        # with n times the work) or the face exchange: library_ms is null
+        # for those; the fold's is one float64 ``sum``
         kernels.append(
             {"name": name, "route": "cuda", "source": src, "replaces": site,
              "launches": path_launches[name], "max_abs_err": err[name],
              "ms": per_call[name][0], "plain_ms": per_call[name][1],
-             "bound_ms": bms, "bound_by": by, "library_ms": None})
+             "bound_ms": bms, "bound_by": by, "library_ms": per_call[name][2] if len(per_call[name]) > 2 else None})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

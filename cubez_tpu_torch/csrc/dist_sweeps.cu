@@ -1,9 +1,9 @@
-// Block-local point sweeps of the distributed path for Hopper (sm_90a): one
-// mesh block with width-1 ghosts (K8).
+// Block-local point sweeps of the distributed path for Hopper (sm_90a): every
+// mesh block of a card in one launch, each with width-1 ghosts (K8).
 //
 // Replaces cubez_tpu/pallas_kernels/dist_sweeps.py:269 (make_block_sweep ->
 // _block_kernel): a Jacobi pass, one red-black colour, or both colours in
-// one pass, on a (lk+2, li+2, lj+2) block whose ghost planes the caller
+// one pass, on (lk+2, li+2, lj+2) blocks whose ghost faces the caller
 // refreshed (parallel/dist_fused.py).  The TPU kernel's layout
 // (lk+4, Ip, Jp), with its K pad and (8, 128) tile padding, is dropped.
 //
@@ -33,11 +33,21 @@
 //
 // What bounds it on an H100: bytes at large blocks (a pass reads the block
 // once and writes it, or half of it, once); at 64^3 blocks (128^3 over
-// (2,2,2), 1.1 MB a block) it sits in L2 and launch latency bounds it.  One
-// thread per cell of the padded block, grid-stride; the simple design.
+// (2,2,2), 1.1 MB a block, 8.9 MB for all eight) the blocks sit in L2 and
+// launch latency and the host bound it.  So one launch takes every block of
+// the card (up to kMaxBlocks; the wrapper splits above that): their
+// pointers and origins go by value in a __grid_constant__ parameter struct,
+// with no table to copy to the device and no state to re-allocate.  A work
+// item is (block, k-chunk, a run of kThreads consecutive columns of the
+// padded (li+2) x (lj+2) plane); its thread owns one (i, j) column (one
+// div per thread, none per point), j fastest, so a warp reads 32 adjacent
+// cells, and walks k over the chunk with x[k-1], x[k] and x[k+1] in
+// registers.  The chunk length comes from the block count and the card's
+// SMs (cuda_kernels/dist_sweeps.py::launch_geometry).  A colour pass runs
+// in place without races: an updated cell reads only the other colour.
 //
-// Residuals: per-block partials of dp^2 in the field's type in a fixed
-// order (one slot per pass and block), folded in float64 on the host.
+// Residuals: one partial of dp^2 per CTA (and colour) in the field's type,
+// in a fixed order, into a buffer that dist_halo.cu's fold sums in float64.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -53,76 +63,100 @@ namespace {
 using namespace cz;
 
 constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 32;  // blocks in one launch (dist_halo.cu)
 
-struct BlockGeom {
+template <typename T>
+struct Block {
+  T* x;        // the ghosted block (updated in place by a colour pass)
+  const T* b;  // its right-hand side, nullptr for zero
+  T* out;      // the Jacobi pass's output
   int k0, i0, j0;  // global origin of the owned cells
-  int Kg, Ig, Jg;  // global shape
-  int offset;      // colour offset
 };
 
-// One pass over every cell of the padded block.  kJacobi: x -> out;
-// otherwise colour ``colour`` in place (out == x).
+template <typename T>
+struct Args {
+  Block<T> blk[kMaxBlocks];
+  T* partials;  // one slot per CTA (and colour)
+  T omega;
+  int lk, li, lj;
+  int Kg, Ig, Jg;  // global shape
+  int offset;      // colour offset
+  int region;      // 0 all, 1 interior, 2 shell
+  int col_ctas;    // CTAs across the padded plane of columns
+  int kchunk, nkc; // rows of a work item, chunks of a block
+  int nwork;       // col_ctas * nkc * blocks
+};
+
+// One pass over every work item of the launch; returns this CTA's sum of
+// dp^2.  kJacobi: x -> out; otherwise colour ``colour`` in place.
 template <typename T, bool kJacobi>
-__device__ __forceinline__ T pass(const T* x, const T* __restrict__ b, T* out, int colour,
-                                  int region, int lk, int li, int lj, T omega,
-                                  const BlockGeom& g) {
-  const unsigned Jp = lj + 2, Ip = li + 2;
-  const unsigned n_cells = unsigned(lk + 2) * Ip * Jp;
-  const size_t plane = size_t(Ip) * Jp;
+__device__ __forceinline__ T pass(const Args<T>& a, int colour) {
+  const int Jp = a.lj + 2;
+  const int cols = (a.li + 2) * Jp;
+  const size_t plane = size_t(cols);
+  const int per_blk = a.col_ctas * a.nkc;
   T acc = 0;
-  for (unsigned idx = blockIdx.x * kThreads + threadIdx.x; idx < n_cells;
-       idx += gridDim.x * kThreads) {
-    const int j = idx % Jp;
-    const unsigned r = idx / Jp;
-    const int i = r % Ip;
-    const int k = r / Ip;
-    // local owned index l - 1 in [0, l); global g = origin + l - 1
-    const int gk = g.k0 + k - 1, gi = g.i0 + i - 1, gj = g.j0 + j - 1;
-    bool upd = k >= 1 && k <= lk && i >= 1 && i <= li && j >= 1 && j <= lj &&
-               gk >= 1 && gk <= g.Kg - 2 && gi >= 1 && gi <= g.Ig - 2 && gj >= 1 &&
-               gj <= g.Jg - 2;
-    if (region != 0) {
-      const bool inner = k >= 2 && k <= lk - 1 && i >= 2 && i <= li - 1 && j >= 2 &&
-                         j <= lj - 1;
-      upd = upd && (region == 1 ? inner : !inner);
+  for (int w = blockIdx.x; w < a.nwork; w += gridDim.x) {
+    const int bi = w / per_blk;
+    const int r = w - bi * per_blk;
+    const int kc = r / a.col_ctas;
+    const int c = (r - kc * a.col_ctas) * kThreads + threadIdx.x;
+    if (c >= cols) continue;
+    const Block<T>& B = a.blk[bi];
+    const T* x = B.x;
+    T* out = kJacobi ? B.out : B.x;
+    const int i = c / Jp, j = c - i * Jp;
+    const int gi = B.i0 + i - 1, gj = B.j0 + j - 1;
+    const bool col = i >= 1 && i <= a.li && j >= 1 && j <= a.lj && gi >= 1 &&
+                     gi <= a.Ig - 2 && gj >= 1 && gj <= a.Jg - 2;
+    const bool col_inner = i >= 2 && i <= a.li - 1 && j >= 2 && j <= a.lj - 1;
+    const int k_lo = kc * a.kchunk;
+    const int k_hi = min(k_lo + a.kchunk, a.lk + 2);
+    T zm = k_lo >= 1 ? x[size_t(k_lo - 1) * plane + c] : T(0);
+    T cen = x[size_t(k_lo) * plane + c];
+    for (int k = k_lo; k < k_hi; ++k) {
+      const size_t p = size_t(k) * plane + c;
+      const T zp = k <= a.lk ? x[p + plane] : T(0);
+      const int gk = B.k0 + k - 1;
+      bool upd = col && k >= 1 && k <= a.lk && gk >= 1 && gk <= a.Kg - 2;
+      if (a.region != 0) {
+        const bool inner = col_inner && k >= 2 && k <= a.lk - 1;
+        upd = upd && (a.region == 1 ? inner : !inner);
+      }
+      if (!kJacobi) upd = upd && ((gk + gi + gj + a.offset + 1) & 1) == colour;
+      if (upd) {
+        T ss = add_rn(add_rn(add_rn(add_rn(add_rn(zm, zp), x[p - Jp]), x[p + Jp]), x[p - 1]),
+                      x[p + 1]);
+        if (B.b != nullptr) ss = sub_rn(ss, B.b[p]);
+        const T dp = mul_rn(fma_rn(ss, T(1.0 / 6.0), -cen), a.omega);
+        out[p] = add_rn(cen, dp);
+        acc += dp * dp;
+      } else if (kJacobi) {
+        out[p] = cen;
+      }
+      zm = cen;
+      cen = zp;
     }
-    if (!kJacobi) upd = upd && ((gk + gi + gj + g.offset + 1) & 1) == colour;
-    if (!upd) {
-      if (kJacobi) out[idx] = x[idx];
-      continue;
-    }
-    const T cen = x[idx];
-    T ss = add_rn(add_rn(add_rn(add_rn(add_rn(x[idx - plane], x[idx + plane]),
-                                       x[idx - Jp]),
-                                x[idx + Jp]),
-                         x[idx - 1]),
-                  x[idx + 1]);
-    if (b != nullptr) ss = sub_rn(ss, b[idx]);
-    const T dp = mul_rn(fma_rn(ss, T(1.0 / 6.0), -cen), omega);
-    out[idx] = add_rn(cen, dp);
-    acc += dp * dp;
   }
   return block_sum<kThreads>(acc);
 }
 
-// kind 0 (Jacobi) or one colour: one pass, partials[blockIdx.x].
+// Jacobi or one colour: one pass, partials[blockIdx.x].
 template <typename T, bool kJacobi>
-__global__ void __launch_bounds__(kThreads) block_pass_kernel(
-    const T* x, const T* b, T* out, T* partials, int colour, int region, int lk, int li,
-    int lj, T omega, BlockGeom g) {
-  const T tot = pass<T, kJacobi>(x, b, out, colour, region, lk, li, lj, omega, g);
-  if (threadIdx.x == 0) partials[blockIdx.x] = tot;
+__global__ void __launch_bounds__(kThreads) sweep_kernel(const __grid_constant__ Args<T> a,
+                                                         int colour) {
+  const T tot = pass<T, kJacobi>(a, colour);
+  if (threadIdx.x == 0) a.partials[blockIdx.x] = tot;
 }
 
-// Both colours in one cooperative launch: partials[c * gridDim.x + block].
+// Both colours in one cooperative launch, the grid synchronised across all
+// the launch's blocks between them: partials[colour * gridDim.x + CTA].
 template <typename T>
-__global__ void __launch_bounds__(kThreads) block_rb_kernel(
-    T* x, const T* b, T* partials, int region, int lk, int li, int lj, T omega,
-    BlockGeom g) {
+__global__ void __launch_bounds__(kThreads) sweep_rb_kernel(const __grid_constant__ Args<T> a) {
   cg::grid_group grid = cg::this_grid();
   for (int colour = 0; colour < 2; ++colour) {
-    const T tot = pass<T, false>(x, b, x, colour, region, lk, li, lj, omega, g);
-    if (threadIdx.x == 0) partials[colour * gridDim.x + blockIdx.x] = tot;
+    const T tot = pass<T, false>(a, colour);
+    if (threadIdx.x == 0) a.partials[colour * gridDim.x + blockIdx.x] = tot;
     if (colour == 0) grid.sync();
   }
 }
@@ -132,8 +166,7 @@ int max_blocks(int device, int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   int per_sm = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_rb_kernel<T>,
-                                                    kThreads, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_rb_kernel<T>, kThreads, 0);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
@@ -141,29 +174,48 @@ int max_blocks(int device, int* out) {
   return cudaSuccess;
 }
 
-// kind 0 Jacobi, 1 red-black; colour -1 both colours (cooperative).
+// ptrs: x, b, out per block.  iargs: n, kind (0 Jacobi, 1 red-black),
+// colour (-1: both colours, cooperative, ``grid`` CTAs at most
+// co-resident), region, lk, li, lj, Kg, Ig, Jg, offset, kchunk, grid,
+// device, then k0, i0, j0 per block.  The wrapper builds both arrays once
+// for a set of blocks.
 template <typename T>
-int launch(void* x, const void* b, void* out, void* partials, int kind, int colour,
-           int region, int lk, int li, int lj, double omega, const int* geom,
-           int nblocks, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+int launch(void* const* ptrs, const int* iargs, double omega, void* partials, void* stream) {
+  const int n = iargs[0], kind = iargs[1], colour = iargs[2], grid = iargs[12];
+  if (n < 1 || n > kMaxBlocks) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(iargs[13]);
   if (e != cudaSuccess) return e;
   auto s = static_cast<cudaStream_t>(stream);
-  BlockGeom g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5], geom[6]};
-  T* xp = static_cast<T*>(x);
-  const T* bp = static_cast<const T*>(b);
-  T* pp = static_cast<T*>(partials);
-  T om = T(omega);
+  Args<T> a{};
+  const int* org = iargs + 14;
+  for (int b = 0; b < n; ++b) {
+    a.blk[b] = Block<T>{static_cast<T*>(ptrs[3 * b]), static_cast<const T*>(ptrs[3 * b + 1]),
+                        static_cast<T*>(ptrs[3 * b + 2]), org[3 * b], org[3 * b + 1],
+                        org[3 * b + 2]};
+  }
+  a.partials = static_cast<T*>(partials);
+  a.omega = T(omega);
+  a.region = iargs[3];
+  a.lk = iargs[4];
+  a.li = iargs[5];
+  a.lj = iargs[6];
+  a.Kg = iargs[7];
+  a.Ig = iargs[8];
+  a.Jg = iargs[9];
+  a.offset = iargs[10];
+  a.kchunk = iargs[11];
+  a.col_ctas = ((a.li + 2) * (a.lj + 2) + kThreads - 1) / kThreads;
+  a.nkc = (a.lk + 2 + a.kchunk - 1) / a.kchunk;
+  a.nwork = a.col_ctas * a.nkc * n;
+  if (grid < 1 || grid > a.nwork) return cudaErrorInvalidValue;
   if (kind == 0) {
-    block_pass_kernel<T, true><<<nblocks, kThreads, 0, s>>>(
-        xp, bp, static_cast<T*>(out), pp, 0, region, lk, li, lj, om, g);
+    sweep_kernel<T, true><<<grid, kThreads, 0, s>>>(a, 0);
   } else if (colour >= 0) {
-    block_pass_kernel<T, false><<<nblocks, kThreads, 0, s>>>(
-        xp, bp, xp, pp, colour, region, lk, li, lj, om, g);
+    sweep_kernel<T, false><<<grid, kThreads, 0, s>>>(a, colour);
   } else {
-    void* args[] = {&xp, &bp, &pp, &region, &lk, &li, &lj, &om, &g};
-    e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(block_rb_kernel<T>),
-                                    dim3(nblocks), dim3(kThreads), args, 0, s);
+    void* args[] = {&a};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(sweep_rb_kernel<T>), dim3(grid),
+                                    dim3(kThreads), args, 0, s);
     if (e != cudaSuccess) return e;
   }
   return cudaGetLastError();
@@ -181,19 +233,14 @@ int cz_block_sweep_max_blocks_f64(int device, int* out) {
   return max_blocks<double>(device, out);
 }
 
-// geom: k0, i0, j0, Kg, Ig, Jg, offset
-int cz_block_sweep_f32(void* x, const void* b, void* out, void* partials, int kind,
-                       int colour, int region, int lk, int li, int lj, double omega,
-                       const int* geom, int nblocks, int device, void* stream) {
-  return launch<float>(x, b, out, partials, kind, colour, region, lk, li, lj, omega,
-                       geom, nblocks, device, stream);
+int cz_block_sweep_f32(void* const* ptrs, const int* iargs, double omega, void* partials,
+                       void* stream) {
+  return launch<float>(ptrs, iargs, omega, partials, stream);
 }
 
-int cz_block_sweep_f64(void* x, const void* b, void* out, void* partials, int kind,
-                       int colour, int region, int lk, int li, int lj, double omega,
-                       const int* geom, int nblocks, int device, void* stream) {
-  return launch<double>(x, b, out, partials, kind, colour, region, lk, li, lj, omega,
-                        geom, nblocks, device, stream);
+int cz_block_sweep_f64(void* const* ptrs, const int* iargs, double omega, void* partials,
+                       void* stream) {
+  return launch<double>(ptrs, iargs, omega, partials, stream);
 }
 
 }  // extern "C"

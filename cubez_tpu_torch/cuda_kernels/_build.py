@@ -60,6 +60,7 @@ def _nvcc() -> str:
 def _declare(lib):
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     u32 = ctypes.c_uint
+    pvp, pi32 = ctypes.POINTER(vp), ctypes.POINTER(i32)
     lib.cz_threads_per_block.argtypes = []
     lib.cz_threads_per_block.restype = i32
     lib.cz_error_string.argtypes = [i32]
@@ -68,6 +69,8 @@ def _declare(lib):
     lib.cz_line_threads_per_block.restype = i32
     lib.cz_pcr_threads_per_block.argtypes = []
     lib.cz_pcr_threads_per_block.restype = i32
+    lib.cz_dist_max_blocks.argtypes = []
+    lib.cz_dist_max_blocks.restype = i32
     for t in ("f32", "f64"):
         for name, args in (
             # rbpack.cu
@@ -92,14 +95,14 @@ def _declare(lib):
             ("dist_rb_sweeps", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,
                                 u32, ctypes.POINTER(i32), i32, i32, vp]),
             ("block_sweep_max_blocks", [i32, ctypes.POINTER(i32)]),
-            ("block_sweep", [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, f64,
-                             ctypes.POINTER(i32), i32, i32, vp]),
+            ("block_sweep", [pvp, pi32, f64, vp, vp]),
+            # dist_halo.cu (the exchange and the fold of K8/K9's steps)
+            ("halo_exchange", [pvp, pi32, vp]),
+            ("fold_partials", [vp, i32, vp, i32, vp]),
             # pcr.cu (K10) and dist_pcr.cu (K9)
             ("fused_pcr", [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
                            i32, f64, i32, i32, i32, i32, vp]),
-            ("block_pcr", [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                           i32, i32, f64, i32, ctypes.POINTER(i32), i32, i32,
-                           i32, vp]),
+            ("block_pcr", [pvp, pi32, f64, vp, vp]),
         ):
             fn = getattr(lib, f"cz_{name}_{t}")
             fn.argtypes = args

@@ -10,8 +10,10 @@ rows.  A line is a column at an owned (i, j) whose global (gi, gj) is
 inner; colour c holds the lines with (gi + gj + offset) % 2 == c, in global
 indices.
 
-``block_pcr`` launches csrc/dist_pcr.cu in one of two forms (the TPU
-kernel's ``solver``):
+``BlockPcr`` launches csrc/dist_pcr.cu once over all the blocks of a card
+(their pointers and origins by value; ``pcr_blocks`` is it for one call,
+``block_pcr`` that launch with one block, for the JAX package's per-block
+``make_block_pcr``), in one of two forms (the TPU kernel's ``solver``):
 
 * ``'pcr'`` (any mesh; the only form on K-split meshes): the line is the
   block's lk owned rows plus its two ghost rows, n = lk + 2.  Ghost rows,
@@ -34,8 +36,10 @@ from the pre-pass block, out of place (the line-Jacobi pass: the result is
 a new block or ``out``, and x is never written).  The residual is the
 float64 sum of dp^2 over the updated rows.
 
-For a CPU tensor ``block_pcr`` runs the plain twin ``block_pcr_plain``,
-bitwise equal to the kernels in float32 and float64: the 'pcr' form by
+The kernel writes one partial sum of dp^2 per CTA into a
+dist_halo.Residual, whose fold is the step's residual.  CPU blocks run the
+plain twins ``pcr_blocks_plain`` and ``block_pcr_plain``, bitwise equal
+to the kernels in float32 and float64: the 'pcr' form by
 ``pcr.pcr_solve_var`` after building the system with the kernel's
 operations in its order (``(((x[i+1] + x[i-1]) + x[j+1]) + x[j-1] - b) *
 R6``; MAF ``((((wxp x[i+1] + wxm x[i-1]) + wyp x[j+1]) + wym x[j-1]) - b)
@@ -48,7 +52,6 @@ algorithm than the TPU's dense solve, within 5e-6.
 
 from __future__ import annotations
 
-import ctypes
 import types
 
 import numpy as np
@@ -59,7 +62,9 @@ from ..ops.pcr import num_stage
 from . import _build
 from .lines import relax_dp, thomas_tables
 from .pcr import pcr_solve_var, tile_lines
-from .rbpack import _NP, _R6, _SUFFIX, check_tab, maf_tables, ptr, stream, table_views
+from .dist_halo import (Launches, Prepared, Residual, check_blocks, chunks,
+                         current_stream, int_array, pointer_array)
+from .rbpack import _NP, _R6, _SUFFIX, check_tab, maf_tables, ptr, table_views
 
 FORMS = ("pcr", "fastdiag")
 # the pad value of each metric coefficient past the grid (identity rows and
@@ -200,85 +205,174 @@ def variant(form: str, maf: bool) -> str:
         "_maf" if maf else "")
 
 
-def _check(x, b, out, tab, form, color, geom):
-    if form not in FORMS:
-        raise ValueError(f"form must be one of {FORMS}, not {form!r}")
-    if color not in (None, 0, 1):
-        raise ValueError(f"color must be None, 0 or 1, not {color!r}")
-    if x.dtype not in _SUFFIX:
-        raise TypeError(f"K9 takes float32 or float64, not {x.dtype}")
-    if x.dim() != 3 or min(x.shape) < 3 or not x.is_contiguous():
-        raise ValueError(f"need a contiguous (lk+2, li+2, lj+2) block, got "
-                         f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
-    if x.numel() >= 2**31:
-        raise ValueError("block too large for 32-bit indexing")
-    for name, t in (("b", b), ("out", out)):
-        if t is not None and (t.shape != x.shape or t.dtype != x.dtype
-                              or t.device != x.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must match x in shape, dtype, device "
-                             "and layout")
-    if out is not None and out.data_ptr() == x.data_ptr():
-        raise ValueError("out must not be x (the line-Jacobi pass is out of "
-                         "place)")
-    lk, li, lj = block_shape_of(x)
-    if form == "fastdiag" and (lk != geom[3] or lk - 2 < 2):
-        raise ValueError(f"'fastdiag' needs the block to span K (lk {lk}, K "
-                         f"{geom[3]}) with two inner rows")
-    check_tab(x, tab, ((lk + 2) if form == "pcr" else lk, li + 2, lj + 2))
+def pcr_blocks_plain(xs, bs, form: str, color, omega: float, origins, gshape,
+                     offset: int = 0, tabs=None, outs=None):
+    """Twin of ``pcr_blocks``: ``block_pcr_plain`` on each block in turn.
+    Returns (blocks, per-block float64 sums of dp^2)."""
+    n = len(xs)
+    res = [block_pcr_plain(x, b, form, color, omega, (*o, *gshape, offset), t, ob)
+           for x, b, o, t, ob in zip(xs, bs or [None] * n, origins,
+                                     tabs or [None] * n, outs or [None] * n)]
+    return [r[0] for r in res], [r[1] for r in res]
+
+
+def make_scratch(shape, dtype, device, form: str, color, maf: bool):
+    """The Thomas scratch of one 'fastdiag' block of ghosted ``shape``:
+    the forward values g (colour passes; the line-Jacobi pass keeps them in
+    its output) and, under MAF, the factors e.  None for the 'pcr'
+    form."""
+    if form != "fastdiag":
+        return None
+    return [torch.empty(shape, dtype=dtype, device=device)
+            for _ in range((color is not None) + maf)]
+
+
+_THOMAS: dict = {}
+
+
+def _thomas(lk, dtype, device):
+    key = (lk, dtype, device)
+    if key not in _THOMAS:
+        _THOMAS[key] = thomas_tables(lk, dtype, device)
+    return _THOMAS[key]
+
+
+class BlockPcr:
+    """K9 over the ghosted blocks of one card (one shape; split above
+    MAX_BLOCKS), one pass: ``form`` 'pcr' or 'fastdiag', ``color`` 0/1 (in
+    place) or None (out of place into ``outs``, new blocks when None);
+    ``origins`` their global (k0, i0, j0), ``gshape`` the global shape;
+    ``tabs`` (each block's ``block_maf_tables`` of the form) selects MAF;
+    ``scratch`` the 'fastdiag' form's Thomas scratch, one ``make_scratch``
+    per block (made at the first call when None).  ``__call__(xs,
+    bs=None, outs=None, res=None, plain=False)``: ``bs`` the right-hand
+    sides (None, or None entries, for zero); the per-CTA partial sums of
+    dp^2 go to ``res`` (a dist_halo.Residual).  Returns the updated
+    blocks.  CPU blocks (any blocks with ``plain``) run the twin and hand
+    ``res`` their per-block sums.  The launch arguments are built once
+    for each set of block pointers (dist_halo.Launches)."""
+
+    def __init__(self, form: str, color, omega: float, origins, gshape,
+                 offset: int = 0, tabs=None, scratch=None):
+        if form not in FORMS:
+            raise ValueError(f"form must be one of {FORMS}, not {form!r}")
+        if color not in (None, 0, 1):
+            raise ValueError(f"color must be None, 0 or 1, not {color!r}")
+        self.form, self.color, self.omega = form, color, omega
+        self.origins, self.gshape = [tuple(o) for o in origins], tuple(gshape)
+        self.offset, self.tabs, self.scratch = offset, tabs, scratch
+        self.variant = variant(form, tabs is not None)
+        self._launches = Launches(self._prepare)
+
+    def _prepare(self, xs, bs, outs):
+        check_blocks("block_pcr", xs, bs, outs)
+        x0 = xs[0]
+        n = len(xs)
+        if x0.dim() != 3 or min(x0.shape) < 3:
+            raise ValueError(f"need (lk+2, li+2, lj+2) blocks, got {tuple(x0.shape)}")
+        if x0.numel() >= 2**31:
+            raise ValueError("block too large for 32-bit indexing")
+        if n != len(self.origins):
+            raise ValueError(f"{n} blocks for {len(self.origins)} origins")
+        if outs is not None and any(o.data_ptr() == x.data_ptr()
+                                    for o, x in zip(outs, xs)):
+            raise ValueError("out must not be x (the line-Jacobi pass is out "
+                             "of place)")
+        lk, li, lj = block_shape_of(x0)
+        form, color, maf = self.form, self.color, self.tabs is not None
+        if form == "fastdiag" and (lk != self.gshape[0] or lk - 2 < 2):
+            raise ValueError(f"'fastdiag' needs the block to span K (lk {lk}, K "
+                             f"{self.gshape[0]}) with two inner rows")
+        tabs = self.tabs or [None] * n
+        for t in self.tabs or ():
+            check_tab(x0, t, ((lk + 2) if form == "pcr" else lk, li + 2, lj + 2))
+        lib = _build.load()
+        lt = None
+        if form == "pcr":
+            L = tile_lines(lk + 2, x0.dtype, True)
+            gx = -(-((lj + 2) if color is None else (lj + 1) // 2) // L)
+            gy = li + 2 if color is None else li
+            scratch = [None] * n
+        else:
+            L, gy = 0, 1
+            cols = (li + 2) * (lj + 2) if color is None else li * ((lj + 1) // 2)
+            gx = -(-cols // lib.cz_line_threads_per_block())
+            lt = None if maf else _thomas(lk, x0.dtype, x0.device)
+            if self.scratch is None:
+                self.scratch = [make_scratch(x0.shape, x0.dtype, x0.device, form,
+                                             color, maf) for _ in xs]
+            scratch = self.scratch
+            for scr in scratch:
+                if len(scr) != (color is not None) + maf:
+                    raise ValueError("scratch must be make_scratch's blocks")
+                check_blocks("block_pcr scratch", xs[:1], scr)
+        bs = bs or [None] * n
+        outs = outs or xs
+        calls = []
+        for lo, hi in chunks(n):
+            vals = []
+            ints = [hi - lo, FORMS.index(form), -1 if color is None else color, L,
+                    num_stage(lk + 2), int(maf), gx, gy, x0.get_device(), lk, li,
+                    lj, *self.gshape, self.offset]
+            for i in range(lo, hi):
+                scr = scratch[i] or ()
+                gs = scr[0] if color is not None and scr else None
+                es = scr[-1] if maf and scr else None
+                vals += [xs[i].data_ptr(), ptr(bs[i]), ptr(tabs[i]),
+                         outs[i].data_ptr(), ptr(gs), ptr(es)]
+                ints += self.origins[i]
+            vals.append(ptr(lt))
+            calls.append((pointer_array(vals), int_array(ints), gx * gy * (hi - lo)))
+        fn = getattr(lib, f"cz_block_pcr_{_SUFFIX[x0.dtype]}")
+        return Prepared(x0, fn, calls)
+
+    def __call__(self, xs, bs=None, outs=None, res=None, plain: bool = False):
+        if plain or not xs[0].is_cuda:
+            out, r2s = pcr_blocks_plain(xs, bs, self.form, self.color, self.omega,
+                                        self.origins, self.gshape, self.offset,
+                                        self.tabs, outs)
+            res.add(r2s)
+            return out
+        if self.color is None:
+            outs = [torch.empty_like(x) for x in xs] if outs is None else outs
+        else:
+            outs = None
+        prep = self._launches.get(xs, bs, outs)
+        x0, s = xs[0], current_stream(prep.device)
+        for parr, iarr, n in prep.calls:
+            _build.check(prep.fn(parr, iarr, self.omega, res.slots(x0, n), s),
+                         "block_pcr")
+            block_pcr.launches += 1
+            v = block_pcr.variant_launches
+            v[self.variant] = v.get(self.variant, 0) + 1
+        return xs if outs is None else outs
+
+
+def pcr_blocks(xs, bs, form: str, color, omega: float, origins, gshape,
+               offset: int = 0, tabs=None, outs=None, scratch=None, res=None,
+               plain: bool = False):
+    """Launch K9 once over the ghosted blocks ``xs`` of one card: a
+    ``BlockPcr`` built for this call (see it for the arguments)."""
+    return BlockPcr(form, color, omega, origins, gshape, offset, tabs, scratch)(
+        xs, bs, outs, res, plain)
 
 
 def block_pcr(x, b, form: str, color, omega: float, geom, tab=None, out=None,
               scratch=None):
-    """Launch K9 on the ghosted block ``x``: ``form`` 'pcr' or 'fastdiag',
-    ``color`` 0/1 (in place) or None (out of place into ``out``, a new
-    block when None); ``geom`` = (k0, i0, j0, Kg, Ig, Jg, offset); ``tab``
-    (``block_maf_tables`` of the form) selects MAF; ``b`` None for a zero
-    right-hand side; ``scratch`` the 'fastdiag' form's Thomas scratch, a
-    list of blocks like x (made when None; two under MAF).  Returns (block,
-    float64 sum of dp^2 on the device).  A CPU tensor runs the plain
-    twin."""
+    """K9 on the one ghosted block ``x``: ``pcr_blocks`` with one block.
+    ``geom`` = (k0, i0, j0, Kg, Ig, Jg, offset); ``tab`` its
+    ``block_maf_tables`` (MAF); ``scratch`` its ``make_scratch`` (made when
+    None).  Returns (block, float64 sum of dp^2 on the device).  A CPU
+    tensor runs the plain twin.  ``block_pcr.launches`` counts the launches
+    of ``pcr_blocks``, in all and by ``variant``."""
     if not x.is_cuda:
         return block_pcr_plain(x, b, form, color, omega, geom, tab, out)
-    _check(x, b, out, tab, form, color, geom)
-    lib = _build.load()
-    lk, li, lj = block_shape_of(x)
-    maf = tab is not None
-    out = x if color is not None else (torch.empty_like(x) if out is None
-                                       else out)
-    gs = es = None
-    if form == "pcr":
-        L = tile_lines(lk + 2, x.dtype, True)
-        gx = -(-((lj + 2) if color is None else (lj + 1) // 2) // L)
-        gy = li + 2 if color is None else li
-        lt = tab
-    else:
-        L = 0
-        cols = (li + 2) * (lj + 2) if color is None else li * ((lj + 1) // 2)
-        gx = -(-cols // lib.cz_line_threads_per_block())
-        gy = 1
-        lt = tab if maf else thomas_tables(lk, x.dtype, x.device)
-        if scratch is None:
-            scratch = [torch.empty_like(x) for _ in range((color is not None) + maf)]
-        for t in scratch:
-            if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device \
-                    or not t.is_contiguous():
-                raise ValueError("scratch must be contiguous blocks like x")
-        if color is not None:
-            gs = scratch[0]
-        if maf:
-            es = scratch[-1]
-    partials = torch.empty(gx * gy, dtype=x.dtype, device=x.device)
-    g = (ctypes.c_int * 7)(*geom)
-    rc = getattr(lib, f"cz_block_pcr_{_SUFFIX[x.dtype]}")(
-        x.data_ptr(), ptr(b), ptr(lt), out.data_ptr(), ptr(gs), ptr(es),
-        partials.data_ptr(), FORMS.index(form), lk, li, lj, L,
-        -1 if color is None else color, num_stage(lk + 2), omega, int(maf),
-        g, gx, gy, x.device.index, stream(x))
-    _build.check(rc, "block_pcr")
-    block_pcr.launches += 1
-    v = variant(form, maf)
-    block_pcr.variant_launches[v] = block_pcr.variant_launches.get(v, 0) + 1
-    return out, partials.sum(dtype=torch.float64)
+    res = Residual(x.device)
+    outs = pcr_blocks([x], [b], form, color, omega, [geom[:3]], geom[3:6],
+                      geom[6], None if tab is None else [tab],
+                      None if out is None else [out],
+                      None if scratch is None else [scratch], res)
+    return outs[0], res.total()
 
 
 # launches, in all and by ``variant``
@@ -327,8 +421,8 @@ def make_block_pcr(block_shape, gshape, dtype=torch.float32, *, omega: float,
         scr = None
         if solver == "fastdiag":
             if x.device not in scratch:
-                scratch[x.device] = [torch.empty_like(x)
-                                     for _ in range((color is not None) + maf)]
+                scratch[x.device] = make_scratch(x.shape, x.dtype, x.device,
+                                                 solver, color, maf)
             scr = scratch[x.device]
         return block_pcr(x, b, solver, color, omega, geom, tab, out, scr)
 

@@ -9,7 +9,10 @@ global inner point, from the block's global origin and the global shape;
 red-black colour c holds (i + j + k + offset + 1) % 2 == c in global
 indices.
 
-``block_sweep`` launches csrc/dist_sweeps.cu:
+``BlockSweeps`` launches csrc/dist_sweeps.cu once over all the blocks of a
+card (their pointers and origins by value; ``sweep_blocks`` is it for one
+call, ``block_sweep`` that launch with one block, for the JAX package's
+per-block ``make_block_sweep``):
 
 * ``kind='jacobi'``: one Jacobi pass, out of place (never writes ``x``);
 * ``kind='sor2sma'``, ``colour`` 0 or 1: one colour, in place;
@@ -23,8 +26,10 @@ indices.
 Arithmetic: the TPU kernel's ``_delta`` (dist_sweeps.py:88-100) as XLA
 contracts it, ``ss = ((((zm + zp) + xm) + xp) + ym) + yp``, ``ss -= b``,
 ``dp = fma(ss, 1/6, -centre) * omega``: the neighbour sum is a chain, not
-K4's pairwise sum.  A CPU tensor runs the plain twin ``block_sweep_plain``
-(bitwise equal in float32).
+K4's pairwise sum.  CPU blocks run the plain twins ``sweep_blocks_plain``
+and ``block_sweep_plain`` (bitwise equal in float32).  The kernel writes
+one partial sum of dp^2 per CTA into a dist_halo.Residual, whose fold is
+the step's residual.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ import ctypes
 import torch
 
 from . import _build
-from .rbpack import _R6, _SUFFIX, _fma, ptr, stream
+from .dist_halo import (Launches, Prepared, Residual, check_blocks, chunks,
+                         current_stream, int_array, pointer_array)
+from .rbpack import _R6, _SUFFIX, _fma, ptr
 
 KINDS = ("jacobi", "sor2sma")
 REGIONS = ("all", "interior", "shell")
@@ -115,73 +122,161 @@ def block_sweep_plain(x, b, kind: str, colour, omega: float, geom,
     return x, r2
 
 
-def _check(x, b, out, kind, colour, region):
-    if kind not in KINDS:
-        raise ValueError(f"kind must be one of {KINDS}, not {kind!r}")
-    if region not in REGIONS:
-        raise ValueError(f"region must be one of {REGIONS}, not {region!r}")
-    if colour not in (None, 0, 1) or (kind == "jacobi" and colour is not None):
-        raise ValueError(f"colour {colour!r} does not fit kind {kind!r}")
-    if x.dtype not in _SUFFIX:
-        raise TypeError(f"K8 takes float32 or float64, not {x.dtype}")
-    if x.dim() != 3 or min(x.shape) < 3 or not x.is_contiguous():
-        raise ValueError(f"need a contiguous (lk+2, li+2, lj+2) block, got "
-                         f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
-    if x.numel() >= 2**31:
-        raise ValueError("block too large for 32-bit indexing")
-    for name, t in (("b", b), ("out", out)):
-        if t is not None and (t.shape != x.shape or t.dtype != x.dtype
-                              or t.device != x.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must match x in shape, dtype, device "
-                             "and layout")
-    if out is not None and out.data_ptr() == x.data_ptr():
-        raise ValueError("out must not be x (the Jacobi pass is out of place)")
+def sweep_blocks_plain(xs, bs, kind: str, colour, omega: float, origins,
+                       gshape, offset: int = 0, region: str = "all"):
+    """Twin of ``sweep_blocks``: ``block_sweep_plain`` on each block in
+    turn.  Returns (blocks, per-block float64 sums of dp^2)."""
+    res = [block_sweep_plain(x, b, kind, colour, omega, (*o, *gshape, offset),
+                             region)
+           for x, b, o in zip(xs, bs or [None] * len(xs), origins)]
+    return [r[0] for r in res], [r[1] for r in res]
 
 
-_MAX_BLOCKS: dict = {}
+# CTAs a pass aims at for each SM of the card: a thread's k walk is a
+# chain of loads, so several CTAs an SM hide their latency.  On an H100
+# the eight 64^3 blocks of 128^3 took 22.8 us a colour launch at 1, 12.9-14.3
+# at 2-16 (tools/prof_dist.py --tiles measures it)
+CTAS_PER_SM = 4
+_SMS: dict = {}
+_MAX_COOP: dict = {}
+
+
+def _sms(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
+
+
+def _max_coop(device, dtype) -> int:
+    key = (device, dtype)
+    if key not in _MAX_COOP:
+        cnt = ctypes.c_int(0)
+        lib = _build.load()
+        _build.check(getattr(lib, f"cz_block_sweep_max_blocks_{_SUFFIX[dtype]}")(
+            device.index, cnt), "block_sweep occupancy")
+        _MAX_COOP[key] = cnt.value
+    return _MAX_COOP[key]
+
+
+def launch_geometry(n: int, block_shape, device, dtype=torch.float32,
+                    both: bool = False):
+    """(kchunk, grid) of one launch over ``n`` blocks: the rows a work item
+    walks, chosen so that the launch has about CTAS_PER_SM CTAs for each SM
+    of ``device``, and the CTAs launched (the cooperative form: at most
+    the co-resident ones, each then takes several work items)."""
+    lk, li, lj = block_shape
+    threads = _build.load().cz_threads_per_block()
+    col_ctas = -(-(li + 2) * (lj + 2) // threads)
+    rows = lk + 2
+    nkc = min(rows, max(1, -(-CTAS_PER_SM * _sms(device) // (col_ctas * n))))
+    kchunk = -(-rows // nkc)
+    nwork = col_ctas * -(-rows // kchunk) * n
+    return kchunk, min(nwork, _max_coop(device, dtype)) if both else nwork
+
+
+class BlockSweeps:
+    """K8 over the ghosted blocks of one card (one shape; split above
+    MAX_BLOCKS), one pass: ``kind``/``colour``/``region`` as the module
+    says, ``origins`` the blocks' global (k0, i0, j0), ``gshape`` the
+    global shape.  ``__call__(xs, bs=None, outs=None, res=None,
+    plain=False)``: ``bs`` their right-hand sides (None, or None entries,
+    for zero); the Jacobi pass writes ``outs`` (new blocks when None); the
+    per-CTA partial sums of dp^2 go to ``res`` (a dist_halo.Residual),
+    which folds them.  Returns the updated blocks.  CPU blocks (any blocks
+    with ``plain``) run the twin and hand ``res`` their per-block sums.
+    The launch arguments are built once for each set of block pointers
+    (dist_halo.Launches)."""
+
+    def __init__(self, kind: str, colour, omega: float, origins, gshape,
+                 offset: int = 0, region: str = "all"):
+        if kind not in KINDS:
+            raise ValueError(f"kind must be one of {KINDS}, not {kind!r}")
+        if region not in REGIONS:
+            raise ValueError(f"region must be one of {REGIONS}, not {region!r}")
+        if colour not in (None, 0, 1) or (kind == "jacobi" and colour is not None):
+            raise ValueError(f"colour {colour!r} does not fit kind {kind!r}")
+        self.kind, self.colour, self.omega = kind, colour, omega
+        self.origins, self.gshape = [tuple(o) for o in origins], tuple(gshape)
+        self.offset, self.region = offset, region
+        self.variant = variant(kind, colour, region)
+        self._launches = Launches(self._prepare)
+
+    def _prepare(self, xs, bs, outs):
+        check_blocks("block_sweep", xs, bs, outs)
+        x0 = xs[0]
+        if x0.dim() != 3 or min(x0.shape) < 3:
+            raise ValueError(f"need (lk+2, li+2, lj+2) blocks, got {tuple(x0.shape)}")
+        if x0.numel() >= 2**31:
+            raise ValueError("block too large for 32-bit indexing")
+        if len(xs) != len(self.origins):
+            raise ValueError(f"{len(xs)} blocks for {len(self.origins)} origins")
+        if outs is not None and any(o.data_ptr() == x.data_ptr()
+                                    for o, x in zip(outs, xs)):
+            raise ValueError("out must not be x (the Jacobi pass is out of place)")
+        both = self.kind == "sor2sma" and self.colour is None
+        bs = bs or [None] * len(xs)
+        bshape = tuple(v - 2 for v in x0.shape)
+        calls = []
+        for lo, hi in chunks(len(xs)):
+            kchunk, grid = launch_geometry(hi - lo, bshape, x0.device, x0.dtype, both)
+            vals, ints = [], [hi - lo, KINDS.index(self.kind),
+                              -1 if self.colour is None else self.colour,
+                              REGIONS.index(self.region), *bshape, *self.gshape,
+                              self.offset, kchunk, grid, x0.get_device()]
+            for i in range(lo, hi):
+                vals += [xs[i].data_ptr(), ptr(bs[i]),
+                         (outs or xs)[i].data_ptr()]
+                ints += self.origins[i]
+            calls.append((pointer_array(vals), int_array(ints),
+                          grid * (2 if both else 1)))
+        fn = getattr(_build.load(), f"cz_block_sweep_{_SUFFIX[x0.dtype]}")
+        return Prepared(x0, fn, calls)
+
+    def __call__(self, xs, bs=None, outs=None, res=None, plain: bool = False):
+        if plain or not xs[0].is_cuda:
+            out, r2s = sweep_blocks_plain(xs, bs, self.kind, self.colour,
+                                          self.omega, self.origins, self.gshape,
+                                          self.offset, self.region)
+            res.add(r2s)
+            return out
+        if self.kind == "jacobi":
+            outs = [torch.empty_like(x) for x in xs] if outs is None else outs
+        else:
+            outs = None
+        prep = self._launches.get(xs, bs, outs)
+        x0, s = xs[0], current_stream(prep.device)
+        for parr, iarr, n in prep.calls:
+            _build.check(prep.fn(parr, iarr, self.omega, res.slots(x0, n), s),
+                         "block_sweep")
+            block_sweep.launches += 1
+            v = block_sweep.variant_launches
+            v[self.variant] = v.get(self.variant, 0) + 1
+        return xs if outs is None else outs
+
+
+def sweep_blocks(xs, bs, kind: str, colour, omega: float, origins, gshape,
+                 offset: int = 0, region: str = "all", outs=None, res=None,
+                 plain: bool = False):
+    """Launch K8 once over the ghosted blocks ``xs`` of one card: a
+    ``BlockSweeps`` built for this call (see it for the arguments)."""
+    return BlockSweeps(kind, colour, omega, origins, gshape, offset, region)(
+        xs, bs, outs, res, plain)
 
 
 def block_sweep(x, b, kind: str, colour, omega: float, geom,
                 region: str = "all", out=None):
-    """Launch K8 on the ghosted block ``x``: ``kind``/``colour``/``region``
-    as the module says; ``geom`` = (k0, i0, j0, Kg, Ig, Jg, offset); ``b``
-    None for a zero right-hand side; ``out`` the Jacobi pass's output (a
-    new tensor when None).  Returns (new block, float64 sum of dp^2 on the
-    device).  A CPU tensor runs the plain twin."""
+    """K8 on the one ghosted block ``x``: ``sweep_blocks`` with one block.
+    ``geom`` = (k0, i0, j0, Kg, Ig, Jg, offset); ``b`` None for a zero
+    right-hand side; ``out`` the Jacobi pass's output (a new tensor when
+    None).  Returns (new block, float64 sum of dp^2 on the device).  A CPU
+    tensor runs the plain twin.  ``block_sweep.launches`` counts the
+    launches of ``sweep_blocks``, in all and by ``variant``."""
     if not x.is_cuda:
         return block_sweep_plain(x, b, kind, colour, omega, geom, region)
-    _check(x, b, out, kind, colour, region)
-    lib = _build.load()
-    sfx = _SUFFIX[x.dtype]
-    dev = x.device.index
-    cells = x.numel()
-    nblocks = -(-cells // lib.cz_threads_per_block())
-    if kind == "jacobi":
-        out = torch.empty_like(x) if out is None else out
-    else:
-        out = x
-    if colour is None and kind == "sor2sma":
-        key = (sfx, dev)
-        if key not in _MAX_BLOCKS:
-            cnt = ctypes.c_int(0)
-            _build.check(getattr(lib, f"cz_block_sweep_max_blocks_{sfx}")(dev, cnt),
-                         "block_sweep occupancy")
-            _MAX_BLOCKS[key] = cnt.value
-        nblocks = min(nblocks, _MAX_BLOCKS[key])
-    passes = 2 if (kind == "sor2sma" and colour is None) else 1
-    partials = torch.empty(passes * nblocks, dtype=x.dtype, device=x.device)
-    g = (ctypes.c_int * 7)(*geom)
-    lk, li, lj = (s - 2 for s in x.shape)
-    rc = getattr(lib, f"cz_block_sweep_{sfx}")(
-        x.data_ptr(), ptr(b), out.data_ptr(), partials.data_ptr(),
-        KINDS.index(kind), -1 if colour is None else colour, REGIONS.index(region),
-        lk, li, lj, omega, g, nblocks, dev, stream(x),
-    )
-    _build.check(rc, "block_sweep")
-    block_sweep.launches += 1
-    v = variant(kind, colour, region)
-    block_sweep.variant_launches[v] = block_sweep.variant_launches.get(v, 0) + 1
-    return out, partials.sum(dtype=torch.float64)
+    res = Residual(x.device)
+    outs = sweep_blocks([x], [b], kind, colour, omega, [geom[:3]], geom[3:6],
+                        geom[6], region, None if out is None else [out], res)
+    return outs[0], res.total()
 
 
 def variant(kind: str, colour, region: str) -> str:

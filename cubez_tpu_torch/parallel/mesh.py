@@ -8,8 +8,10 @@ design without a collective library: a :class:`CubeMesh` holds the
 division (dz, dx, dy) over the (K, I, J) axes and one torch device per
 block, and a distributed field is a list of block tensors, blocks in
 (z, x, y) row-major order.  ``ppermute`` becomes slice copies between
-block tensors (halo.py, dist_pack.py, dist_fused.py) and ``psum`` a sum of
-per-block partials in a fixed block order (``halo.psum_all``).
+block tensors (halo.py, dist_pack.py), or for the K8/K9 steps one exchange
+kernel over the blocks of a card (halo.FaceExchange), and ``psum`` a sum
+of per-block partials in a fixed block order (``halo.psum_all``), or a
+float64 fold of per-CTA partials on the card (dist_halo.Residual).
 
 Several blocks may share a device (``["cuda:0"] * 8`` runs eight blocks
 on one card, ``["cpu"] * 8`` on the host, the counterpart of the JAX

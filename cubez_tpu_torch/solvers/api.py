@@ -37,36 +37,31 @@ def solve(
     wrappers launch the CUDA kernels for CUDA tensors and run the plain
     twins for CPU tensors; 'plain' runs the plain twins on any device
     (same builders, layout and iterations per call).  A ``_maf`` solver
-    takes ``problem.mc`` (ValueError without it).  The kernels synthesize
-    the standard mask from the indices, so a mask other than the standard
-    one runs the plain unpacked sweep (ops/stencil.py, ops/maf.py, or the
-    line twins with the mask): on the CPU or with 'plain', and on CUDA
-    under 'auto' a NotImplementedError, since no masked kernel is ported.
-    So does a line solver with fewer than two inner points along K, which
-    has no kernel step (the JAX package's n = K - 2 < 2).  ``precond`` is
-    accepted for signature parity and, as in the JAX package, unused by
-    relaxation solvers.  ``check_every``: see driver.run_iterative;
-    counts, histories and the returned field do not depend on it."""
+    takes ``problem.mc`` (ValueError without it).  Two configurations have
+    no kernel step, and run the plain unpacked sweep of steps.make_step
+    (ops/stencil.py, ops/maf.py, or the line twins with the mask) on the
+    fields' device under either ``impl``, as the JAX package runs its jnp
+    step for them (its get_jnp_step): a mask other than the standard one
+    (the kernels synthesize the standard mask from the indices), and a
+    line solver with fewer than two inner points along K (the JAX
+    package's n = K - 2 < 2, where no tiling fits).  The route is chosen
+    from the configuration before anything launches, never on a kernel's
+    failure: a CUDA kernel that fails to build or launch raises.  The
+    kernels' launch counters show that none ran.  ``precond`` is accepted
+    for signature parity and, as in the JAX package, unused by relaxation
+    solvers.  ``check_every``: see run_iterative; counts, histories
+    and the returned field do not depend on it."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     kind, _ = steps_mod.require_ported(solver)
     mc = steps_mod.maf_coeffs(problem, solver)
     g = problem.grid
     step = pre = post = None
-    if not problem.msk_is_standard():
-        why = ("a non-standard mask needs a masked sweep; the kernels "
-               "synthesize the standard mask from the indices and no masked "
-               "kernel is ported")
-    else:
+    if problem.msk_is_standard():
         step = get_fused_step(kind, g, omega, mc=mc, plain=impl == "plain",
                               b_is_zero=problem.rhs_is_inner_zero())
-        why = (f"'{solver}' has no kernel step at (K, I, J) = {g.shape_kij}: "
-               "the line kernels need K - 2 >= 2")
     if step is not None:
         pre, post = step.pad, step.unpad
-    elif problem.x0.is_cuda and impl == "auto":
-        raise NotImplementedError(
-            f"{why}; impl='plain' runs the plain PyTorch sweep")
     else:
         step = steps_mod.make_step(problem, solver, omega)
     result = run_iterative(

@@ -131,20 +131,24 @@ def test_odd_i_on_cuda_launches_k4(dev):
 
 @pytest.mark.parametrize("name", ["sor2sma", "jacobi", "pcr_rb", "pcr_j_esa"])
 def test_non_standard_mask_on_cuda_raises(dev, name):
-    """No kernel takes a mask other than the standard one, so 'auto'
-    refuses it on the card; 'plain' runs the plain sweep there."""
+    """No kernel takes a mask other than the standard one, so 'auto' runs
+    the plain masked sweep on the card (steps.make_step, the JAX package's
+    jnp route; it no longer raises): no kernel launches, and the count and
+    field are the CPU twin's (the field within 1e-6: the same elementwise
+    operations on both devices; r2's sums group differently)."""
     base = czt.Problem.poisson_cube(16, device="cpu")
     msk = base.msk.numpy().copy()
     msk[5:8, 6, 7] = 0.0  # an obstacle
-    prob = czt.Problem.from_arrays((16, 16, 16), torch.float32,
-                                   base.x0.numpy(), base.rhs.numpy(), msk,
-                                   rhs_inner_zero=True, device=dev)
+    probs = [czt.Problem.from_arrays((16, 16, 16), torch.float32,
+                                     base.x0.numpy(), base.rhs.numpy(), msk,
+                                     rhs_inner_zero=True, device=d)
+             for d in (dev, "cpu")]
     before = _launches()
-    with pytest.raises(NotImplementedError, match="masked"):
-        czt.solve(prob, name, omega=0.8, itr_max=50)
-    assert _launches() == before
-    r = czt.solve(prob, name, omega=0.8, itr_max=50, impl="plain")
+    r = czt.solve(probs[0], name, omega=0.8, itr_max=50)
     assert r.x.is_cuda and _launches() == before
+    c = czt.solve(probs[1], name, omega=0.8, itr_max=50)
+    assert r.iters == c.iters
+    torch.testing.assert_close(r.x.cpu(), c.x, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("name,omega", [
@@ -299,13 +303,18 @@ def test_line_jacobi_step_alternates_two_buffers(dev):
 
 
 def test_line_solver_without_two_inner_k_raises_on_cuda(dev):
-    """K - 2 < 2 has no line kernel step: 'auto' refuses it on the card,
-    'plain' runs the plain line sweep there."""
-    prob = czt.Problem.poisson_cube((8, 8, 3), device=dev)
-    with pytest.raises(NotImplementedError, match="K - 2 >= 2"):
-        czt.solve(prob, "pcr_rb", omega=OMEGA, itr_max=5)
-    r = czt.solve(prob, "pcr_rb", omega=OMEGA, itr_max=5, impl="plain")
-    assert r.x.is_cuda
+    """K - 2 < 2 has no line kernel step: 'auto' runs the plain line sweep
+    on the card (the JAX package's jnp route; it no longer raises), no
+    kernel launches, the count and field are the CPU twin's (within 1e-6,
+    as above); K6's wrapper itself still refuses such a field."""
+    before = _launches()
+    r = czt.solve(czt.Problem.poisson_cube((8, 8, 3), device=dev), "pcr_rb",
+                  omega=OMEGA, itr_max=5)
+    assert r.x.is_cuda and _launches() == before
+    c = czt.solve(czt.Problem.poisson_cube((8, 8, 3), device="cpu"), "pcr_rb",
+                  omega=OMEGA, itr_max=5)
+    assert r.iters == c.iters
+    torch.testing.assert_close(r.x.cpu(), c.x, rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="K - 2 >= 2"):
         k6.line_rb(torch.zeros(3, 8, 8, device=dev), None, OMEGA)
 
@@ -536,3 +545,192 @@ def test_wrappers_never_hand_a_cuda_tensor_to_a_twin(dev, monkeypatch):
         for form, gs in (("pcr", (20, 16, 22)), ("fastdiag", (10, 16, 22))):
             k9.block_pcr(x.clone(), None, form, color, OMEGA, (0, 8, 0, *gs, 0))
     torch.cuda.synchronize()
+
+
+# ---- slice 10: K8 and K9 over all the blocks of the card in one launch -------
+
+# (global shape, division): cubic blocks, K-unsplit blocks, non-cubic ones
+BATCH_MESHES = [((32, 32, 32), (2, 2, 2)), ((32, 32, 32), (1, 2, 2)),
+                ((24, 28, 32), (2, 2, 2))]
+BATCH_VARIANTS = (
+    [("k8", kind, colour, region) for kind, colour, region in (
+        ("jacobi", None, "all"), ("sor2sma", 0, "all"), ("sor2sma", 1, "all"),
+        ("sor2sma", None, "all"), ("sor2sma", 0, "interior"),
+        ("sor2sma", 1, "shell"))]
+    + [("k9", form, colour, maf) for form in ("pcr", "fastdiag")
+       for colour in (0, 1, None) for maf in (False, True)])
+
+
+def _dist_counters():
+    from cubez_tpu_torch.cuda_kernels import dist_halo
+    from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
+    from cubez_tpu_torch.cuda_kernels import dist_sweeps as k8
+
+    return (k8.block_sweep.launches + k9.block_pcr.launches
+            + dist_halo.halo_exchange.launches + dist_halo.fold_partials.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh", range(len(BATCH_MESHES)))
+@pytest.mark.parametrize("variant", BATCH_VARIANTS)
+def test_batched_launch_matches_twin(dev, variant, mesh, dtype):
+    """One launch over every block of the mesh on the card against the
+    batched twin: float32 bitwise, float64 within 1e-14; the folded r2
+    within rtol 1e-5 of the twins' (partials grouped by CTA)."""
+    from cubez_tpu_torch.cuda_kernels import dist_halo
+    from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
+    from cubez_tpu_torch.cuda_kernels import dist_sweeps as k8
+
+    gshape, div = BATCH_MESHES[mesh]
+    cm = czt.make_mesh(gshape, devices=[dev] * (div[0] * div[1] * div[2]), div=div)
+    bshape = cm.block_shape(gshape)
+    origins = cm.offsets(gshape)
+    gen = torch.Generator().manual_seed(31 + mesh)
+    shape = tuple(v + 2 for v in bshape)
+    xs = [(torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+          for _ in origins]
+    bs = [(torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+          for _ in origins]
+    keep = [x.clone() for x in xs]
+    res = dist_halo.Residual(dev)
+    res.start()
+    before = k8.block_sweep.launches + k9.block_pcr.launches
+    if variant[0] == "k8":
+        _, kind, colour, region = variant
+        got = k8.sweep_blocks([x.clone() for x in xs] if kind != "jacobi" else xs,
+                              bs, kind, colour, 0.8, origins, gshape, 1, region,
+                              res=res)
+        want, r2s = k8.sweep_blocks_plain([x.clone() for x in keep], bs, kind,
+                                          colour, 0.8, origins, gshape, 1, region)
+    else:
+        _, form, colour, maf = variant
+        if form == "fastdiag" and div[0] != 1:
+            form = "pcr"
+        tabs = None
+        if maf:
+            mc = czt.Problem.manufactured_stretched(
+                (gshape[1], gshape[2], gshape[0]), dtype=dtype, device=dev)[0].mc
+            tabs = [k9.block_maf_tables(mc, o, bshape, gshape, dtype, form).to(dev)
+                    for o in origins]
+        got = k9.pcr_blocks([x.clone() for x in xs] if colour is not None else xs,
+                            bs, form, colour, OMEGA, origins, gshape, 1, tabs,
+                            res=res)
+        want, r2s = k9.pcr_blocks_plain([x.clone() for x in keep], bs, form,
+                                        colour, OMEGA, origins, gshape, 1, tabs)
+    r2 = res.total()
+    torch.cuda.synchronize()
+    assert k8.block_sweep.launches + k9.block_pcr.launches == before + 1
+    assert all(torch.equal(x, k) for x, k in zip(xs, keep))  # out of place
+    tol = 0.0 if dtype == torch.float32 else 1e-14
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= tol
+    torch.testing.assert_close(r2, sum(r2s), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("mesh", range(len(BATCH_MESHES)))
+def test_exchange_and_fold_kernels_match_twins(dev, mesh):
+    """The exchange kernel (one launch, and gather then scatter through
+    the staging buffer) against its twin, bitwise, edges untouched; the
+    fold against its twin within rtol 1e-15."""
+    from cubez_tpu_torch.cuda_kernels import dist_halo
+    from cubez_tpu_torch.parallel.halo import FaceExchange
+
+    gshape, div = BATCH_MESHES[mesh]
+    cm = czt.make_mesh(gshape, devices=[dev] * (div[0] * div[1] * div[2]), div=div)
+    table = [[-1 if (nb := cm.neighbor(b, f // 2, 1 if f % 2 else -1)) is None
+              else nb for f in range(6)] for b in range(cm.size)]
+    gen = torch.Generator().manual_seed(41)
+    shape = tuple(v + 2 for v in cm.block_shape(gshape))
+    xs = [torch.rand(shape, generator=gen).to(dev) for _ in range(cm.size)]
+    want = dist_halo.halo_exchange_plain([x.clone() for x in xs], table)
+    before = dist_halo.halo_exchange.launches
+    got = FaceExchange(cm)([x.clone() for x in xs])
+    ex = FaceExchange(cm)
+    split = [x.clone() for x in xs]
+    ex.collect(split)
+    ex.write(split)
+    torch.cuda.synchronize()
+    assert dist_halo.halo_exchange.launches == before + 3
+    for w, g, s_ in zip(want, got, split):
+        assert torch.equal(g, w) and torch.equal(s_, w)
+    p = torch.rand(3001, generator=gen).to(dev)
+    got = float(dist_halo.fold_partials(p, 3001))
+    want = float(dist_halo.fold_partials_plain(p.cpu()))
+    assert abs(got - want) <= 1e-15 * want
+
+
+# (solver, sync, omega, division, the step's launches: exchange, sweep, fold)
+STEP_LAUNCHES = [("sor2sma", "color", OMEGA, (2, 2, 2), 5),
+                 ("sor2sma", "iter", OMEGA, (2, 2, 2), 3),
+                 ("sor2sma", "overlap", OMEGA, (2, 2, 2), 9),
+                 ("jacobi", "auto", 0.8, (2, 2, 2), 3),
+                 ("pcr_rb", "auto", OMEGA, (2, 2, 2), 5),
+                 ("pcr_rb_maf", "auto", OMEGA, (2, 2, 2), 5),
+                 ("pcr_j_esa", "auto", 1.0, (2, 2, 2), 3),
+                 ("pcr_rb", "auto", OMEGA, (1, 2, 2), 5),
+                 ("pcr_j_esa", "auto", 1.0, (1, 2, 2), 3)]
+
+
+def _dist_step(name, sync, omega, cm, p):
+    from cubez_tpu_torch.parallel import dist_fused
+
+    kind = {"sor2sma": "sor2sma", "jacobi": "jacobi", "pcr_j_esa": "pcr"}.get(
+        name, "pcr_rb")
+    if sync == "overlap":
+        return dist_fused.make_dist_fused_overlap_step(p, cm, omega, b_is_zero=True)
+    return dist_fused.make_dist_fused_step(
+        p, cm, kind, omega, b_is_zero=True, sync="iter" if sync == "iter" else "color")
+
+
+@pytest.mark.parametrize("path", STEP_LAUNCHES)
+def test_dist_step_launch_count(dev, path):
+    """One step of each dist path on eight (four) blocks of the card makes
+    exactly its launches (the wrappers' counters: exchange, K8/K9, fold);
+    with the edge ghosts poisoned by NaN its field and r2 are finite and
+    equal to the clean run's."""
+    from cubez_tpu_torch.parallel import dist_fused
+
+    name, sync, omega, div, launches = path
+    p = czt.Problem.poisson_cube(32, device=dev, maf=name.endswith("_maf"))
+    cm = czt.make_mesh((32, 32, 32), devices=[dev] * (div[0] * div[1] * div[2]),
+                       div=div)
+    step, poisoned = (_dist_step(name, sync, omega, cm, p) for _ in range(2))
+    clean = dist_fused.to_block_state(cm, p.x0)
+    dirty = [x.clone() for x in clean]
+    for x in dirty:
+        e = torch.zeros(x.shape, dtype=torch.int32)
+        for ax in range(3):
+            idx = [slice(None)] * 3
+            for end in (0, -1):
+                idx[ax] = end
+                e[tuple(idx)] += 1
+        x[(e >= 2).to(dev)] = float("nan")
+    clean, _ = step(clean, None)  # the first call makes the buffers
+    dirty, _ = poisoned(dirty, None)
+    torch.cuda.synchronize()
+    before = _dist_counters()
+    clean, r_c = step(clean, None)
+    torch.cuda.synchronize()
+    assert _dist_counters() - before == launches
+    dirty, r_d = poisoned(dirty, None)
+    own = (slice(1, -1),) * 3
+    assert torch.isfinite(r_d) and torch.equal(r_c, r_d)
+    for a, b in zip(clean, dirty):
+        assert torch.isfinite(b[own]).all() and torch.equal(a[own], b[own])
+
+
+@pytest.mark.parametrize("solver,div", [("sor2sma", (2, 2, 2)),
+                                        ("pcr_rb", (2, 2, 2)),
+                                        ("pcr_rb", (1, 2, 2))])
+def test_dist_solves_are_deterministic(dev, solver, div):
+    """Two identical dist solves on the card give bitwise equal histories
+    and fields (the fold sums in a fixed order, no atomics)."""
+    p = czt.Problem.poisson_cube(32, device=dev)
+    cm = czt.make_mesh((32, 32, 32), devices=[dev] * (div[0] * div[1] * div[2]),
+                       div=div)
+    kw = dict(omega=OMEGA, itr_max=10000,
+              sync="color" if solver == "sor2sma" else "auto")
+    r1 = czt.solve_dist(p, cm, solver, **kw)
+    r2 = czt.solve_dist(p, cm, solver, **kw)
+    assert r1.iters == r2.iters
+    assert torch.equal(r1.history, r2.history) and torch.equal(r1.x, r2.x)
