@@ -22,7 +22,10 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
      125^3 (odd I: K4 only) and the ragged shape, offsets 0 and 1;
    - the line steps, constant and MAF, with and without b: K5 (rbl) at
      128^3 and the ragged shape, K6's line-Jacobi (line_j) at all three,
-     K6's red-black form (line_rb) at 125^3 and the ragged shape;
+     K6's red-black form (line_rb) at 125^3 and the ragged shape, and all
+     three at the shared-memory tile's edges (LINE_EDGES: 2 and 3 inner
+     rows, K - 2 not a multiple of a tile's thread rows, line counts not a
+     multiple of its 32 lines, odd I and J);
 4. the main path, ``solve(Problem.poisson_cube(128, device="cuda"),
    "sor2sma", omega=1.5, itr_max=10000)``, with the kernels' launch counts
    zeroed just before: 1777-1849 iterations (the f32 oracle's 1813 +-2%),
@@ -65,7 +68,8 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     n = 6 chain, jacobi on K4, sor2sma_maf on the MAF pair, the MAF chain
     at n = 6, pcr_rb on K5, pcr_rb_maf on K5-MAF, pcr_j_esa on K6; CUDA
     events, distinct random starts, long-minus-short differencing), and
-    every kernel per call against its twin at 128^3;
+    every kernel per call against its twin at 128^3, and K5's and K6's
+    also at 512^3 (the ``_512`` keys of their rows);
 13. the distributed kernels against their twins: one block at a time at
     nonzero offsets, K7 (dist_rb_sweeps) on the (2, 2, 2) blocks of 128^3
     at n = 2, 6 and the one-iteration form n = 1 on the depth-12 ring,
@@ -160,6 +164,10 @@ OMEGA_J = 0.8
 OMEGA_L = 1.0  # pcr_j_esa: line-Jacobi diverges above about 1.0
 SEED = 20261016
 RAGGED = (37, 22, 45)  # (K, I, J)
+# the line tile's edges (csrc/line_tile.cuh; 32 lines and 4 thread rows a
+# tile at these K): 2 and 3 inner rows, odd I (K6's red-black form), line
+# counts that are no multiple of 32, K - 2 no multiple of 4
+LINE_EDGES = ((4, 22, 45), (5, 21, 37), (39, 9, 70), (130, 14, 97))
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
@@ -308,9 +316,9 @@ def main():
     new_shapes = ((128, 128, 128), (125, 125, 125), RAGGED)
     # (kind, variant, shapes): K5 where I is even, K6's red-black form where
     # the dispatch takes it (odd I) and on the ragged shape
-    line_kinds = (("rbl", "rbl", ((128, 128, 128), RAGGED)),
-                  ("pcr_j", "line_j", new_shapes),
-                  ("pcr_rb", "line_rb", ((125, 125, 125), RAGGED)))
+    line_kinds = (("rbl", "rbl", ((128, 128, 128), RAGGED) + LINE_EDGES),
+                  ("pcr_j", "line_j", new_shapes + LINE_EDGES),
+                  ("pcr_rb", "line_rb", ((125, 125, 125), RAGGED) + LINE_EDGES))
     cases = [
         ("single b=0", "rb_color", const_shapes, False,
          packed(rb.make_packed_sweep, b_is_zero=True)),
@@ -348,11 +356,12 @@ def main():
     ]
     err = {}
     n_cmp = 0
-    for shape in ((128, 128, 128), (124, 124, 124), (125, 125, 125), RAGGED):
+    for shape in ((128, 128, 128), (124, 124, 124), (125, 125, 125), RAGGED,
+                  *LINE_EDGES):
         for dtype in (f32, f64):
             tol = 0.0 if dtype == f32 else 1e-14
             mc = None
-            if shape in new_shapes:
+            if shape in new_shapes or shape in LINE_EDGES:
                 mc = stretched_mc(shape, dtype)
             x, b = rand(shape, dtype).to(dev), rand(shape, dtype).to(dev)
             for offset in (0, 1):
@@ -792,9 +801,7 @@ def main():
     xl = k5.pack_rb_lines(rand(sh, f32).to(dev))
     tab = rb.maf_tables(Problem.poisson_cube(128, device=dev, maf=True).mc,
                         sh, f32)
-    # the line kernels' scratch, owned by their steps on the path
-    gl, el = (torch.empty(xl.shape[1:], device=dev) for _ in range(2))
-    out, gu, eu = (torch.empty_like(xu) for _ in range(3))
+    out = torch.empty_like(xu)  # line-Jacobi's second field
     calls = {
         "rb_color": (lambda: rb.rb_color(xs, None, 0, OMEGA),
                      lambda: rb.rb_color_plain(xs, None, 0, OMEGA)),
@@ -816,17 +823,17 @@ def main():
                         lambda: k4.sor2sma_plain(xu, None, OMEGA)),
         "k4_rb_color_maf": (lambda: k4.sor2sma_k4(xu, None, OMEGA, tab=tab),
                             lambda: k4.sor2sma_plain(xu, None, OMEGA, tab=tab)),
-        "rbl": (lambda: k5.rbl(xl, None, OMEGA, g=gl),
+        "rbl": (lambda: k5.rbl(xl, None, OMEGA),
                 lambda: k5.rbl_plain(xl, None, OMEGA)),
-        "rbl_maf": (lambda: k5.rbl(xl, None, OMEGA, tab=tab, g=gl, e=el),
+        "rbl_maf": (lambda: k5.rbl(xl, None, OMEGA, tab=tab),
                     lambda: k5.rbl_plain(xl, None, OMEGA, tab=tab)),
         "line_j": (lambda: k6.line_j(xu, None, OMEGA_L, out=out),
                    lambda: k6.line_j_plain(xu, None, OMEGA_L)),
-        "line_j_maf": (lambda: k6.line_j(xu, None, OMEGA_L, tab, out=out, e=eu),
+        "line_j_maf": (lambda: k6.line_j(xu, None, OMEGA_L, tab, out=out),
                        lambda: k6.line_j_plain(xu, None, OMEGA_L, tab)),
-        "line_rb": (lambda: k6.line_rb(xu, None, OMEGA, g=gu),
+        "line_rb": (lambda: k6.line_rb(xu, None, OMEGA),
                     lambda: k6.line_rb_plain(xu, None, OMEGA)),
-        "line_rb_maf": (lambda: k6.line_rb(xu, None, OMEGA, tab=tab, g=gu, e=eu),
+        "line_rb_maf": (lambda: k6.line_rb(xu, None, OMEGA, tab=tab),
                         lambda: k6.line_rb_plain(xu, None, OMEGA, tab=tab)),
     }
     per_call = {}
@@ -842,6 +849,43 @@ def main():
               f"plain twin {per_call[name][1]:.4f} ms {tag}")
     check(all(bool(torch.isfinite(t).all()) for t in (xs, xu, xl, out)),
           "timing fields not finite")
+    # K5 and K6 at 512^3 too, where the bytes bound them: the same calls,
+    # kernel against twin in turns (the twins loop over k in Python: one
+    # call each side)
+    sh5 = (512, 512, 512)
+    xl5 = k5.pack_rb_lines(torch.rand(sh5, device=dev, generator=dgen) * 2 - 1)
+    xu5 = torch.rand(sh5, device=dev, generator=dgen) * 2 - 1
+    out5 = torch.empty_like(xu5)
+    tab5 = rb.maf_tables(Problem.poisson_cube(512, device=dev, maf=True).mc,
+                         sh5, f32)
+    calls512 = {
+        "rbl": (lambda: k5.rbl(xl5, None, OMEGA),
+                lambda: k5.rbl_plain(xl5, None, OMEGA)),
+        "rbl_maf": (lambda: k5.rbl(xl5, None, OMEGA, tab=tab5),
+                    lambda: k5.rbl_plain(xl5, None, OMEGA, tab=tab5)),
+        "line_j": (lambda: k6.line_j(xu5, None, OMEGA_L, out=out5),
+                   lambda: k6.line_j_plain(xu5, None, OMEGA_L)),
+        "line_j_maf": (lambda: k6.line_j(xu5, None, OMEGA_L, tab5, out=out5),
+                       lambda: k6.line_j_plain(xu5, None, OMEGA_L, tab5)),
+        "line_rb": (lambda: k6.line_rb(xu5, None, OMEGA),
+                    lambda: k6.line_rb_plain(xu5, None, OMEGA)),
+        "line_rb_maf": (lambda: k6.line_rb(xu5, None, OMEGA, tab=tab5),
+                        lambda: k6.line_rb_plain(xu5, None, OMEGA, tab=tab5)),
+    }
+    per_call_512 = {}
+    for name, (kfn, pfn) in calls512.items():
+        kfn(), pfn()
+        sync()
+        p1 = events_ms(pfn, 1)
+        k1 = events_ms(kfn, 10)
+        k2 = events_ms(kfn, 10)
+        p2 = events_ms(pfn, 1)
+        per_call_512[name] = (min(k1, k2), min(p1, p2))
+        print(f"per call at 512^3 f32: {name} {per_call_512[name][0]:.4f} ms, "
+              f"plain twin {per_call_512[name][1]:.4f} ms {tag}", flush=True)
+    check(all(bool(torch.isfinite(t).all()) for t in (xl5, xu5, out5)),
+          "512^3 line timing fields not finite")
+    del xl5, xu5, out5, tab5, calls512
 
     # the least work of each call above: (bytes that must move, each input
     # read once and each output written once; operations), float32 at
@@ -869,7 +913,7 @@ def main():
         "line_rb": (2 * fb, 14 * inner),
         "line_rb_maf": (2 * fb, 24 * inner),
     }
-    del xs, bs, xu, xl, out, gu, eu, gl, el
+    del xs, bs, xu, xl, out
 
     # ---- 13. the distributed kernels vs their twins ----------------------------
     stamp(13)
@@ -1649,6 +1693,7 @@ def main():
     for name in meta:
         check(path_launches.get(name, 0) > 0, f"{name}: no path launched it")
     kernels = []
+    fb5, inner5 = 4 * 512**3, 510**3
     for name, (src, site) in meta.items():
         bms, by = bound(*work[name])
         # no single PyTorch call computes a red-black colour, a Jacobi sweep,
@@ -1661,6 +1706,12 @@ def main():
              "launches": path_launches[name], "max_abs_err": err[name],
              "ms": per_call[name][0], "plain_ms": per_call[name][1],
              "bound_ms": bms, "bound_by": by, "library_ms": per_call[name][2] if len(per_call[name]) > 2 else None})
+        if name in per_call_512:
+            # the same least work at 512^3: 2 fields, the row's operations
+            flops = work[name][1] / inner * inner5
+            kernels[-1].update({"ms_512": per_call_512[name][0],
+                                "plain_ms_512": per_call_512[name][1],
+                                "bound_ms_512": bound(2 * fb5, flops)[0]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-// The line relaxation shared by the line kernels, lines.cu (K6) and
-// rblines.cu (K5).
+// The one-thread line relaxation of K9's 'fastdiag' form (dist_pcr.cu).
+// K5 (rblines.cu) and K6 (lines.cu) run the same arithmetic on
+// line_tile.cuh's shared-memory tile.
 //
 // A line is the column of the K values at one (i, j).  Relaxing an inner
 // line solves its K-tridiagonal system for the n = K - 2 inner values,

@@ -14,94 +14,93 @@
 // kernel's I-halo, (8, 128) padding and VMEM slab sizing are dropped.
 //
 // rbl_color_kernel: the lines of one colour, in place; two launches make
-// an iteration, and colour 1 reads colour 0's update.  One thread per
-// packed (i2, j) line, consecutive threads on consecutive j; the solve is
-// lines.cuh's Thomas pass, with a scratch of one colour's size, (K, I/2,
-// J), for the forward values and a second for the MAF factors.  The MAF
-// tables are indexed by the physical i.
+// an iteration, and colour 1 reads colour 0's update.  The solve is
+// line_tile.cuh's shared-memory tile: a CTA takes L consecutive packed
+// lines (i2, j0 .. j0 + L - 1) of the colour, whole in K, so every load
+// and store of a k row is L consecutive values.  No global scratch.  The
+// MAF tables are indexed by the physical i.
 //
-// What bounds it on an H100: per colour it reads the other colour's four
-// lines and b, and writes and reads the scratch; at 128^3 float32 all of
-// it sits in the 50 MB L2 and the 8,192 lines of a colour are too few
-// threads to hide the latency of the serial k loop, so latency bounds it
-// (H100 80GB HBM3: 54 us a colour at 128^3, about 214 ns per k step).  At
-// 512^3 (131,072 lines a colour) the bytes do (about 2.7 GB an iteration
-// in 1.35 ms).
+// What bounds it on an H100: an iteration must read the field and write
+// it once, 2 fields (1.07 GB at 512^3 float32, 320 us at 3.35 TB/s); the
+// two colour launches move 3 (each reads both colours and writes its own:
+// 1.61 GB, 480 us).  Before the tile (one thread a line, the forward
+// values and the MAF factors in a global scratch) the serial k loop waited
+// out an L2 round trip a step: 54 us a colour at 128^3, about 214 ns a k
+// step, and at 512^3 2.7 GB an iteration in 1.35 ms (H100 80GB HBM3).
 //
-// Residuals: per-block partials of dp^2 in a fixed order, no atomics; the
+// Residuals: per-tile partials of dp^2 in a fixed order, no atomics; the
 // host folds them in float64.
 
 #include <cuda_runtime.h>
 
-#include <cstddef>
-
-#include "lines.cuh"
+#include "line_tile.cuh"
 
 namespace {
 
 using namespace cz;
 
-template <typename T, bool kMaf>
-__global__ void __launch_bounds__(kLineThreads) rbl_color_kernel(
-    T* xp, const T* __restrict__ bp, const T* __restrict__ lt, T* g, T* e, T* partials,
-    int K, int I2, int J, int colour, int offset, T omega) {
-  const unsigned line = blockIdx.x * kLineThreads + threadIdx.x;
-  const size_t plane = size_t(I2) * J;
-  T acc = 0;
-  if (line < plane) {
-    const unsigned i2 = line / unsigned(J);
-    const unsigned j = line % unsigned(J);
-    const unsigned s = (j + unsigned(offset + colour)) & 1u;
-    const unsigned i = 2 * i2 + s;
-    if (i >= 1 && i + 2 <= 2 * unsigned(I2) && j >= 1 && j + 2 <= unsigned(J)) {
-      const size_t own = size_t(colour) * K * plane + line;
-      const size_t oth = size_t(1 - colour) * K * plane;
-      const LineAt at{own,
-                      oth + size_t(i2 + s) * J + j,
-                      oth + size_t(i2 + s - 1) * J + j,
-                      oth + line + 1,
-                      oth + line - 1,
-                      plane,
-                      line};
-      acc = relax_line<T, kMaf>(xp, xp, xp, bp, g, e, at, lt, K, 2 * I2, J, i, j, omega);
-    }
+// One colour of the packed layout: row i2, lane j; own0 and oth0 are the
+// first values of this colour's and the other colour's (K, I2, J) planes.
+struct PackedLines {
+  unsigned I2, J, parity;  // parity = offset + colour
+  unsigned own0, oth0;
+  __device__ __forceinline__ TileLine at(unsigned i2, unsigned j) const {
+    TileLine t{};
+    const unsigned s = (j + parity) & 1u;
+    t.i = 2 * i2 + s;
+    t.j = j;
+    t.valid = j < J;
+    t.inner = t.valid && t.i >= 1 && t.i + 2 <= 2 * I2 && j >= 1 && j + 2 <= J;
+    const unsigned line = i2 * J + j;
+    t.own = own0 + line;
+    t.ip = oth0 + (i2 + s) * J + j;
+    t.im = oth0 + (i2 + s - 1) * J + j;
+    t.jp = oth0 + line + 1;
+    t.jm = oth0 + line - 1;
+    return t;
   }
-  const T tot = block_sum<kLineThreads>(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = tot;
+};
+
+template <typename T, bool kMaf>
+__global__ void __launch_bounds__(kTileMaxThreads) rbl_color_kernel(PackedLines g,
+                                                                     TileArgs<T> a) {
+  relax_tile<T, kMaf, false>(g, a);
 }
 
 template <typename T>
-int launch(void* xp, const void* bp, const void* lt, void* g, void* e, void* partials, int K,
-           int I2, int J, int colour, int offset, double omega, int maf, int device,
-           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+int launch(void* xp, const void* bp, const void* lt, void* partials, int K, int I2, int J,
+           int colour, int offset, double omega, int maf, int lines, int threads, int tiles,
+           int device, void* stream) {
+  const unsigned plane = unsigned(I2) * J;
+  // xp is both the neighbours (the other colour, read only) and the
+  // relaxed field (this colour's inner values): see line_tile.cuh
+  const TileArgs<T> a{static_cast<const T*>(xp), static_cast<T*>(xp),
+                      static_cast<const T*>(bp), static_cast<const T*>(lt),
+                      static_cast<T*>(partials), plane, K, 2 * I2, J, unsigned(J), lines,
+                      T(omega)};
+  const PackedLines g{unsigned(I2), unsigned(J), unsigned(offset + colour),
+                      unsigned(colour) * K * plane, unsigned(1 - colour) * K * plane};
   auto kernel = maf ? rbl_color_kernel<T, true> : rbl_color_kernel<T, false>;
-  const size_t lines = size_t(I2) * J;
-  kernel<<<unsigned((lines + kLineThreads - 1) / kLineThreads), kLineThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(xp), static_cast<const T*>(bp), static_cast<const T*>(lt),
-      static_cast<T*>(g), static_cast<T*>(e), static_cast<T*>(partials), K, I2, J, colour,
-      offset, T(omega));
-  return cudaGetLastError();
+  return launch_tiles<T>(kernel, unsigned(tiles), tile_count(I2, J, lines), threads, K, lines,
+                         maf, device, stream, g, a);
 }
 
 }  // namespace
 
 extern "C" {
 
-int cz_rbl_color_f32(void* xp, const void* bp, const void* lt, void* g, void* e,
-                     void* partials, int K, int I2, int J, int colour, int offset,
-                     double omega, int maf, int device, void* stream) {
-  return launch<float>(xp, bp, lt, g, e, partials, K, I2, J, colour, offset, omega, maf,
-                       device, stream);
+int cz_rbl_color_f32(void* xp, const void* bp, const void* lt, void* partials, int K, int I2,
+                     int J, int colour, int offset, double omega, int maf, int lines,
+                     int threads, int tiles, int device, void* stream) {
+  return launch<float>(xp, bp, lt, partials, K, I2, J, colour, offset, omega, maf, lines,
+                       threads, tiles, device, stream);
 }
 
-int cz_rbl_color_f64(void* xp, const void* bp, const void* lt, void* g, void* e,
-                     void* partials, int K, int I2, int J, int colour, int offset,
-                     double omega, int maf, int device, void* stream) {
-  return launch<double>(xp, bp, lt, g, e, partials, K, I2, J, colour, offset, omega, maf,
-                        device, stream);
+int cz_rbl_color_f64(void* xp, const void* bp, const void* lt, void* partials, int K, int I2,
+                     int J, int colour, int offset, double omega, int maf, int lines,
+                     int threads, int tiles, int device, void* stream) {
+  return launch<double>(xp, bp, lt, partials, K, I2, J, colour, offset, omega, maf, lines,
+                        threads, tiles, device, stream);
 }
 
 }  // extern "C"

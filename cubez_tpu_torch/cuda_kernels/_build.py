@@ -84,12 +84,13 @@ def _declare(lib):
             ("k4_rb_color", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64, i32,
                              vp]),
             # lines.cu (K6) and rblines.cu (K5)
-            ("line_j", [vp, vp, vp, vp, vp, vp, i32, i32, i32, f64, i32, i32,
-                        vp]),
-            ("line_rb_color", [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                               f64, i32, i32, vp]),
-            ("rbl_color", [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,
-                           i32, i32, vp]),
+            # (..., maf, lines a tile, threads, tiles, device, stream)
+            ("line_j", [vp, vp, vp, vp, vp, i32, i32, i32, f64, i32, i32, i32,
+                        i32, i32, vp]),
+            ("line_rb_color", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,
+                               i32, i32, i32, i32, i32, vp]),
+            ("rbl_color", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64, i32,
+                           i32, i32, i32, i32, vp]),
             # dist_rbpack.cu (K7) and dist_sweeps.cu (K8)
             ("dist_rb_max_blocks", [i32, i32, ctypes.POINTER(i32)]),
             ("dist_rb_sweeps", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,

@@ -6,9 +6,12 @@ A line is the column of K values at one (i, j).  A line sweep solves each
 inner line's K-tridiagonal system (the Dirichlet values x[0] and x[K-1]
 folded into its ends) and moves the line by omega towards the solution:
 the reference's pcr family (cz_solver.f90:497-1676, cz_maf.f90:442-1560).
-The kernels solve each line by the Thomas algorithm, one thread per line
-(``csrc/lines.cuh``), in place of the TPU kernel's dense T^-1 d and
-fast-diagonalization products.
+The kernels solve each line by the Thomas algorithm in place of the TPU
+kernel's dense T^-1 d and fast-diagonalization products, on a
+shared-memory tile (``csrc/line_tile.cuh``): a CTA takes ``L`` lines of
+one row, whole in K (``line_tile`` chooses L), builds their right-hand
+sides with all its threads, runs the recurrences a thread a line out of
+shared memory and writes the lines back once; no global scratch.
 
 Layout: the (K, I, J) field itself, as K4 (``sweeps.pad_k2``, a
 contiguous copy, and ``unpad_k2``); the TPU kernel's (I+4, Kp, Jp) line
@@ -94,6 +97,89 @@ def thomas_tables(K: int, dtype, device) -> torch.Tensor:
     (2K,) tensor, Q_k = 1/m_k then E_k = (1/6)/m_k for k = 1..K-2 (zeros
     elsewhere, E_{K-2} = 0), computed in float64 and rounded to ``dtype``."""
     return torch.from_numpy(_thomas_np(K).astype(_NP[dtype])).to(device)
+
+
+# --------------------------------------------------------------------------
+# the shared-memory tile of the kernels (csrc/line_tile.cuh)
+# --------------------------------------------------------------------------
+
+TILE_LINES = 32  # the most lines a tile takes
+# threads of a tile's CTA: a multiple of 32 and of L
+# (tools/prof_lines.py --fixed --tiles measures the choices)
+TILE_THREADS = 256
+# an H100 (sm_90): a CTA may take 227 KB of shared memory, an SM holds
+# 228 KB and keeps 1 KB of it for each resident CTA; the kernels' static
+# array (the fold's warp sums, kTileMaxThreads / 32 values) is counted at
+# its largest, float64
+SMEM_CTA = 232_448
+SMEM_SM = 233_472
+SMEM_RESERVED = 1024
+TILE_MAX_THREADS = 256  # line_tile.cuh's kTileMaxThreads
+SMEM_STATIC = 8 * TILE_MAX_THREADS // 32
+_ITEMSIZE = {torch.float32: 4, torch.float64: 8}
+
+
+def _tile_bytes(K: int, dtype, maf: bool, L: int) -> int:
+    """line_tile.cuh's ``tile_smem_bytes``: the k tables (2K values, 3K for
+    MAF), then (K - 2) L values of d, and as many of e_k for MAF."""
+    n = (3 if maf else 2) * K + (K - 2) * L * (2 if maf else 1)
+    return n * _ITEMSIZE[dtype]
+
+
+def max_tile_k(dtype, maf: bool) -> int:
+    """The largest K whose tile of one line fits one CTA's shared memory."""
+    # a one-line tile: (tables + per_line) K - 2 per_line values
+    item, per_line, tables = _ITEMSIZE[dtype], 2 if maf else 1, 3 if maf else 2
+    return (SMEM_CTA - SMEM_STATIC + 2 * per_line * item) // ((tables + per_line) * item)
+
+
+def line_tile(K: int, dtype, maf: bool, max_lines: int | None = None):
+    """(L, smem bytes): the lines one CTA of the line kernels takes for
+    lines of K values, and the shared memory of its tile (``_tile_bytes``).
+    L is the largest power of two up to ``max_lines`` (``TILE_LINES``)
+    whose tile leaves room for two CTAs an SM, while that allows L >= 16;
+    else the largest whose tile fits one CTA.  Raises ValueError past
+    ``max_tile_k``."""
+    top = TILE_LINES if max_lines is None else max_lines
+    cands = [1 << p for p in range(top.bit_length() - 1, -1, -1)]
+
+    def fits(L, ctas):
+        need = _tile_bytes(K, dtype, maf, L) + SMEM_STATIC
+        return need <= SMEM_CTA and ctas * (need + SMEM_RESERVED) <= SMEM_SM
+
+    for L in cands:
+        if L >= 16 and fits(L, 2):
+            return L, _tile_bytes(K, dtype, maf, L)
+    for L in cands:
+        if fits(L, 1):
+            return L, _tile_bytes(K, dtype, maf, L)
+    raise ValueError(
+        f"a line of K = {K} {dtype} values{' (MAF)' if maf else ''} does not "
+        f"fit the line kernels' shared memory: K <= {max_tile_k(dtype, maf)}")
+
+
+def tile_count(rows: int, lanes: int, L: int) -> int:
+    """Tiles of a launch over ``rows`` rows of ``lanes`` lines, L a tile:
+    line_tile.cuh's ``tile_count``."""
+    return rows * -(-lanes // L)
+
+
+def tile_plan(kind: str, shape, dtype, maf: bool):
+    """(L, threads, tiles) of one launch of ``kind`` on a state of
+    ``shape``: 'rbl' (K5, the packed (2, K, I/2, J) state; a colour's rows
+    are i2 and its lanes j), 'line_j' (every line of (K, I, J), rows i,
+    lanes j) or 'line_rb' (one colour of (K, I, J), lanes the colour's
+    ceil(J/2) j).  A launch writes one partial sum of dp^2 a tile."""
+    K, I, J = shape[-3:]
+    return _plan(kind, K, I, J, dtype, bool(maf), TILE_LINES, TILE_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(kind, K, I, J, dtype, maf, max_lines, threads):
+    rows, lanes = {"rbl": (I, J), "line_j": (I, J),
+                   "line_rb": (I, (J + 1) // 2)}[kind]
+    L, _ = line_tile(K, dtype, maf, max_lines)
+    return L, max(threads, L), tile_count(rows, lanes, L)
 
 
 # --------------------------------------------------------------------------
@@ -202,18 +288,6 @@ def line_rb_plain(x, b, omega: float, offset: int = 0, tab=None, msk=None):
 # --------------------------------------------------------------------------
 
 
-def scratch(t, shape, like):
-    """``t`` checked to be a contiguous tensor of ``shape`` with ``like``'s
-    dtype and device, or such a tensor made when ``t`` is None."""
-    if t is None:
-        return torch.empty(shape, dtype=like.dtype, device=like.device)
-    if (tuple(t.shape) != tuple(shape) or t.dtype != like.dtype
-            or t.device != like.device or not t.is_contiguous()):
-        raise ValueError(f"scratch must be a contiguous {tuple(shape)} "
-                         f"{like.dtype} tensor on {like.device}")
-    return t
-
-
 def launch_args(x, tab):
     """(library, the line tables, the MAF flag) for a launch on x; the
     line tables are ``tab`` for MAF, else ``thomas_tables``."""
@@ -224,29 +298,30 @@ def launch_args(x, tab):
     return _build.load(), lt, int(tab is not None)
 
 
-def _nblocks(lib, threads: int) -> int:
-    return -(-threads // lib.cz_line_threads_per_block())
-
-
-def line_j(x, b, omega: float, tab=None, out=None, e=None):
+def line_j(x, b, omega: float, tab=None, out=None):
     """Launch ``line_jacobi_kernel``: one line-Jacobi iteration into
     ``out`` (a new field when None; never ``x``, which is only read);
-    ``tab`` (``maf_tables``) selects MAF, whose factors go to the scratch
-    field ``e`` (made when None).  Returns (out, float64 sum of dp^2 on the
-    device).  A CPU tensor runs the plain twin."""
+    ``tab`` (``maf_tables``) selects MAF.  Returns (out, float64 sum of
+    dp^2 on the device).  A CPU tensor runs the plain twin."""
     if not x.is_cuda:
         return line_j_plain(x, b, omega, tab)
     _check(x, b, tab)
     lib, lt, maf = launch_args(x, tab)
     K, I, J = x.shape
-    out = scratch(out, x.shape, x)
+    if out is None:
+        out = torch.empty_like(x)
+    if (out.shape != x.shape or out.dtype != x.dtype or out.device != x.device
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {tuple(x.shape)} "
+                         f"{x.dtype} tensor on {x.device}")
     if out.data_ptr() == x.data_ptr():
         raise ValueError("out must not be x (the update is out of place)")
-    e = scratch(e, x.shape, x) if maf else None
-    partials = torch.empty(_nblocks(lib, I * J), dtype=x.dtype, device=x.device)
+    L, threads, tiles = tile_plan("line_j", x.shape, x.dtype, maf)
+    partials = torch.empty(tiles, dtype=x.dtype, device=x.device)
     rc = getattr(lib, f"cz_line_j_{_SUFFIX[x.dtype]}")(
-        x.data_ptr(), ptr(b), lt.data_ptr(), out.data_ptr(), ptr(e),
-        partials.data_ptr(), K, I, J, omega, maf, x.device.index, stream(x),
+        x.data_ptr(), ptr(b), lt.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), K, I, J, omega, maf, L, threads, tiles,
+        x.device.index, stream(x),
     )
     _build.check(rc, "line_j")
     count(line_j, tab)
@@ -256,26 +331,24 @@ def line_j(x, b, omega: float, tab=None, out=None, e=None):
 line_j.launches = line_j.maf_launches = 0
 
 
-def line_rb(x, b, omega: float, offset: int = 0, tab=None, g=None, e=None):
+def line_rb(x, b, omega: float, offset: int = 0, tab=None):
     """Launch ``line_rb_color_kernel`` twice (colour 0, then 1): one
-    red-black line iteration in place; ``tab`` selects MAF.  ``g`` and
-    ``e`` (MAF only) are scratch fields of x's shape, made when None.
-    Returns the float64 sum of dp^2 over both colours (on the device).  A
-    CPU tensor runs the plain twin."""
+    red-black line iteration in place; ``tab`` selects MAF.  Returns the
+    float64 sum of dp^2 over both colours (on the device).  A CPU tensor
+    runs the plain twin."""
     if not x.is_cuda:
         return line_rb_plain(x, b, omega, offset, tab)
     _check(x, b, tab)
     lib, lt, maf = launch_args(x, tab)
     K, I, J = x.shape
-    g = scratch(g, x.shape, x)
-    e = scratch(e, x.shape, x) if maf else None
+    L, threads, tiles = tile_plan("line_rb", x.shape, x.dtype, maf)
     fn = getattr(lib, f"cz_line_rb_color_{_SUFFIX[x.dtype]}")
-    partials = torch.empty(2, _nblocks(lib, I * ((J + 1) // 2)), dtype=x.dtype,
-                           device=x.device)
+    partials = torch.empty(2, tiles, dtype=x.dtype, device=x.device)
+    st = stream(x)
     for c in (0, 1):
-        rc = fn(x.data_ptr(), ptr(b), lt.data_ptr(), g.data_ptr(), ptr(e),
-                partials[c].data_ptr(), K, I, J, c, offset, omega, maf,
-                x.device.index, stream(x))
+        rc = fn(x.data_ptr(), ptr(b), lt.data_ptr(), partials[c].data_ptr(),
+                K, I, J, c, offset, omega, maf, L, threads, tiles,
+                x.device.index, st)
         _build.check(rc, "line_rb")
         count(line_rb, tab)
     return partials.sum(dtype=torch.float64)
@@ -304,7 +377,7 @@ def make_line_step(kind: str, shape, dtype=torch.float32, *, omega: float,
     if refuses(shape, dtype):
         return None
     tab = maf_tables(mc, shape, dtype)
-    bufs = []  # the step's own fields, made at the first CUDA call
+    bufs = []  # line-Jacobi's two fields, made at the first CUDA call
 
     if kind == "pcr_j" and plain:
         def step(x, b):
@@ -314,20 +387,17 @@ def make_line_step(kind: str, shape, dtype=torch.float32, *, omega: float,
             if not x.is_cuda:
                 return line_j(x, None if b_is_zero else b, omega, tab)
             if not bufs:
-                bufs.extend(torch.empty_like(x) for _ in range(2 + (tab is not None)))
+                bufs.extend(torch.empty_like(x) for _ in range(2))
             # ping-pong: write the buffer that is not x; a foreign x (the
             # start, or the driver's snapshot in its replay) is only read
             out = bufs[1] if x.data_ptr() == bufs[0].data_ptr() else bufs[0]
-            return line_j(x, None if b_is_zero else b, omega, tab, out=out,
-                          e=bufs[2] if tab is not None else None)
+            return line_j(x, None if b_is_zero else b, omega, tab, out=out)
     elif plain:
         def step(x, b):
             return x, line_rb_plain(x, None if b_is_zero else b, omega, offset, tab)
     else:
         def step(x, b):
-            if x.is_cuda and not bufs:
-                bufs.extend(torch.empty_like(x) for _ in range(1 + (tab is not None)))
-            return x, line_rb(x, None if b_is_zero else b, omega, offset, tab, *bufs)
+            return x, line_rb(x, None if b_is_zero else b, omega, offset, tab)
 
     step.iters_per_call = 1
     step.single = step

@@ -17,8 +17,10 @@ i +- 1 neighbours the other colour at rows i2 + s and i2 + s - 1, s its
 own parity (rblines.py:24-29).
 
 One kernel (csrc/rblines.cu), ``rbl``: colour 0, then colour 1, two
-launches in place, each solving its colour's lines by the Thomas pass of
-``csrc/lines.cuh`` with the arithmetic contract of ``lines.py``, constant
+launches in place, each solving its colour's lines by the Thomas pass on
+the shared-memory tile of ``csrc/line_tile.cuh`` (``L`` consecutive
+packed lines a CTA, ``lines.line_tile``) with the arithmetic contract of
+``lines.py``, constant
 coefficients or MAF (the tables indexed by the physical i), zero or
 streamed b.  For a CPU tensor it runs ``rbl_plain``, which unpacks,
 relaxes both colours with ``lines.line_rb_plain`` and packs back: bitwise
@@ -32,7 +34,7 @@ import functools
 import torch
 
 from . import _build
-from .lines import _nblocks, launch_args, line_rb_plain, refuses, scratch
+from .lines import launch_args, line_rb_plain, refuses, tile_plan
 from .rbpack import _SUFFIX, _check, count, maf_tables, ptr, stream
 
 
@@ -75,26 +77,24 @@ def rbl_plain(xp, bp, omega: float, offset: int = 0, tab=None):
     return r2
 
 
-def rbl(xp, bp, omega: float, offset: int = 0, tab=None, g=None, e=None):
+def rbl(xp, bp, omega: float, offset: int = 0, tab=None):
     """Launch ``rbl_color_kernel`` twice (colour 0, then 1): one red-black
     line iteration of the packed state in place; ``tab`` (``maf_tables``)
-    selects MAF.  ``g`` and ``e`` (MAF only) are scratch of one colour's
-    shape (K, I/2, J), made when None.  Returns the float64 sum of dp^2
-    (on the device).  A CPU tensor runs the plain twin."""
+    selects MAF.  Returns the float64 sum of dp^2 (on the device).  A CPU
+    tensor runs the plain twin."""
     if not xp.is_cuda:
         return rbl_plain(xp, bp, omega, offset, tab)
     _check(xp, bp, tab)
     lib, lt, maf = launch_args(xp, tab)
     _, K, I2, J = xp.shape
-    g = scratch(g, xp.shape[1:], xp)
-    e = scratch(e, xp.shape[1:], xp) if maf else None
+    L, threads, tiles = tile_plan("rbl", xp.shape, xp.dtype, maf)
     fn = getattr(lib, f"cz_rbl_color_{_SUFFIX[xp.dtype]}")
-    partials = torch.empty(2, _nblocks(lib, I2 * J), dtype=xp.dtype,
-                           device=xp.device)
+    partials = torch.empty(2, tiles, dtype=xp.dtype, device=xp.device)
+    st = stream(xp)
     for c in (0, 1):
-        rc = fn(xp.data_ptr(), ptr(bp), lt.data_ptr(), g.data_ptr(), ptr(e),
-                partials[c].data_ptr(), K, I2, J, c, offset, omega, maf,
-                xp.device.index, stream(xp))
+        rc = fn(xp.data_ptr(), ptr(bp), lt.data_ptr(), partials[c].data_ptr(),
+                K, I2, J, c, offset, omega, maf, L, threads, tiles,
+                xp.device.index, st)
         _build.check(rc, "rbl")
         count(rbl, tab)
     return partials.sum(dtype=torch.float64)
@@ -114,16 +114,12 @@ def make_rbl_step(shape, dtype=torch.float32, *, omega: float,
     if refuses(shape, dtype) or shape[1] % 2:
         return None
     tab = maf_tables(mc, shape, dtype)
-    bufs = []  # one colour's scratch, made at the first CUDA call
 
     def step(xp, bp):
         b = None if b_is_zero else bp
         if plain:
             return xp, rbl_plain(xp, b, omega, offset, tab)
-        if xp.is_cuda and not bufs:
-            bufs.extend(torch.empty(xp.shape[1:], dtype=xp.dtype, device=xp.device)
-                        for _ in range(1 + (tab is not None)))
-        return xp, rbl(xp, b, omega, offset, tab, *bufs)
+        return xp, rbl(xp, b, omega, offset, tab)
 
     step.iters_per_call = 1
     step.single = step

@@ -319,6 +319,127 @@ def test_line_solver_without_two_inner_k_raises_on_cuda(dev):
         k6.line_rb(torch.zeros(3, 8, 8, device=dev), None, OMEGA)
 
 
+# ---- slice 11: K5 and K6 on the shared-memory line tile ---------------------
+
+# (K, I, J) at the tile's edges: K - 2 of 2 and 3 inner rows, K - 2 not a
+# multiple of a tile's thread rows, line counts not a multiple of L, odd J,
+# odd I (K6's red-black form; K5 refuses it)
+TILE_EDGES = [(4, 10, 37), (5, 9, 33), (13, 12, 45), (39, 9, 70), (7, 6, 3)]
+# (TILE_LINES, TILE_THREADS): the default, and settings that change the
+# thread rows a lane and the tiles a row
+TILE_SETTINGS = [(32, 256), (8, 64), (16, 128), (64, 256)]
+
+
+@pytest.fixture
+def tile_setting(request, monkeypatch):
+    lines_max, threads = request.param
+    monkeypatch.setattr(k6, "TILE_LINES", lines_max)
+    monkeypatch.setattr(k6, "TILE_THREADS", threads)
+    return request.param
+
+
+@pytest.mark.parametrize("tile_setting", TILE_SETTINGS, indirect=True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", TILE_EDGES)
+def test_line_tile_edges_match_plain_twins(dev, shape, dtype, tile_setting):
+    """Every K5/K6 step, constant and MAF, zero and streamed b, offsets 0
+    and 1, at the tile's edges and several tile settings: float32 fields
+    bitwise the twins', float64 within chip_smoke.py's 1e-14, residuals to
+    rtol 1e-5."""
+    K, I, J = shape
+    gen = torch.Generator().manual_seed(11 + K)
+    x = torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1
+    b = torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1
+    tol = 0.0 if dtype == torch.float32 else 1e-14
+    mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                            device=dev)[0].mc
+    n_steps = 0
+    for m in (None, mc):
+        for offset in (0, 1):
+            for label, build in _line_builders(m):
+                kstep = build(shape, dtype, offset, False)
+                pstep = build(shape, dtype, offset, True)
+                if kstep is None:
+                    continue
+                x0, b0 = kstep.pad(x.to(dev)), kstep.pad(b.to(dev))
+                xk, xp = x0.clone(), x0.clone()
+                for _ in range(2):
+                    xk, rk = kstep(xk, b0)
+                    xp, rp = pstep(xp, b0)
+                torch.cuda.synchronize()
+                where = f"{label} MAF={m is not None} offset={offset}"
+                assert float((xk - xp).abs().max()) <= tol, where
+                torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0, msg=where)
+                n_steps += 1
+    assert n_steps == 2 * 2 * (4 if I % 2 else 6)
+
+
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_line_jacobi_copies_the_faces(dev, dtype, maf):
+    """line_j writes every value of ``out``: handed a NaN-poisoned out, it
+    leaves the face lines and the k = 0 and K-1 planes equal to x and the
+    rest equal to the twin's, and x untouched."""
+    shape = (13, 12, 45)
+    K, I, J = shape
+    tab = None
+    if maf:
+        mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                                device=dev)[0].mc
+        tab = rb.maf_tables(mc, shape, dtype)
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    keep = x.clone()
+    out = torch.full_like(x, float("nan"))
+    got, _ = k6.line_j(x, None, 1.0, tab, out=out)
+    want, _ = k6.line_j_plain(x, None, 1.0, tab)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr() and torch.equal(x, keep)
+    assert bool(torch.isfinite(got).all())
+    face = torch.ones(shape, dtype=torch.bool, device=dev)
+    face[1:-1, 1:-1, 1:-1] = False
+    assert torch.equal(got[face], x[face])
+    tol = 0.0 if dtype == torch.float32 else 1e-14
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("kind", ["K5", "pcr_j", "pcr_rb"])
+def test_line_steps_allocate_no_field_scratch(dev, kind, maf):
+    """After a warm-up call a line step allocates only its partial sums:
+    no (K, I, J)-sized scratch (the Thomas values stay in shared memory)."""
+    shape = (48, 48, 48) if kind != "pcr_rb" else (48, 47, 48)
+    K, I, J = shape
+    mc = czt.Problem.poisson_cube((I, J, K), device=dev, maf=True).mc if maf else None
+    if kind == "K5":
+        step = k5.make_rbl_step(shape, omega=OMEGA, b_is_zero=True, mc=mc)
+    else:
+        step = k6.make_line_step(kind, shape, omega=1.0 if kind == "pcr_j" else OMEGA,
+                                 b_is_zero=True, mc=mc)
+    x = step.pad(torch.rand(shape, device=dev))
+    for _ in range(3):  # line-Jacobi makes its two fields here
+        x, _ = step(x, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    x, r = step(x, None)
+    torch.cuda.synchronize()
+    field = x.numel() * x.element_size()
+    assert torch.cuda.max_memory_allocated(dev) - base < field // 8
+    assert bool(torch.isfinite(r))
+
+
+def test_line_tile_launch_refuses_bad_settings(dev, monkeypatch):
+    """The kernels check the tile settings they are handed and return an
+    error the wrapper raises: threads not a multiple of a warp, or more
+    than line_tile.cuh's bound."""
+    x = torch.rand(8, 8, 8, device=dev)
+    for threads in (48, 512):  # not a multiple of a warp; past the bound
+        monkeypatch.setattr(k6, "TILE_THREADS", threads)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            k6.line_j(x, None, 1.0)
+
+
 # ---- slice 9a: K7 (dist_rbpack) and K8 (dist_sweeps) ------------------------
 
 # (block shape, global shape, mesh coords of the block, split axes)
