@@ -17,9 +17,11 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
      (37, 22, 45) (K, I, J): the single sweep with zero and seeded b, the
      pair with b, n = 3, 4, 6, offsets 0 and 1;
    - the MAF packed steps (single with and without b, pair with and
-     without b, n = 3 and 6) on stretched-grid coefficients, and K4
-     (jacobi and sor2sma, constant and MAF, with and without b) at 128^3,
-     125^3 (odd I: K4 only) and the ragged shape, offsets 0 and 1;
+     without b, n = 3 and 6) on stretched-grid coefficients, and K4 on
+     its plane tiles (the one-pass red-black step, and the Jacobi step
+     and its single form: JACOBI_N iterations a launch and one, constant
+     and MAF, with and without b) at 128^3, 125^3 (odd I: K4 only) and
+     the ragged shape, offsets 0 and 1;
    - the line steps, constant and MAF, with and without b: K5 (rbl) at
      128^3 and the ragged shape, K6's line-Jacobi (line_j) at all three,
      K6's red-black form (line_rb) at 125^3 and the ragged shape, and all
@@ -36,13 +38,15 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
 7. the slice-2 paths at 128^3 f32, each with the counts zeroed just before
    and read just after: sor2sma_maf (the packed MAF pair, its stopping
    chunk replayed on the MAF single sweep; 1813 +-2%), jacobi and
-   jacobi_maf at omega 0.8 (K4; 5378 and 5377 +-2%), histories to rtol 1e-3
+   jacobi_maf at omega 0.8 (K4, one launch a call of JACOBI_N
+   iterations; 5378 and 5377 +-2%), histories to rtol 1e-3
    (the jacobi pair's against the oracle with float64 sums of dp^2,
    tests/torch_ref_histories), Error max equal to a plain-twin solve's
    (1e-5); then 60 fixed sweeps of the MAF window chain at n = 6 (K3-MAF),
    which no solve dispatches;
-8. odd I: sor2sma and sor2sma_maf at 125^3 on K4's red-black form, the
-   plain twin's iteration count and field;
+8. odd I: sor2sma and sor2sma_maf at 125^3 on K4's one-pass red-black
+   step (one launch an iteration), the plain twin's iteration count and
+   field;
 9. the line solvers (slice 5), each with the counts zeroed just before
    and read just after: at 128^3 f32 pcr_rb (K5; the f32 oracle's 1356
    +-2%), pcr_rb_maf (K5-MAF; 1355) and pcr_j_esa at omega 1.0 (K6
@@ -68,8 +72,9 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     n = 6 chain, jacobi on K4, sor2sma_maf on the MAF pair, the MAF chain
     at n = 6, pcr_rb on K5, pcr_rb_maf on K5-MAF, pcr_j_esa on K6; CUDA
     events, distinct random starts, long-minus-short differencing), and
-    every kernel per call against its twin at 128^3, and K5's and K6's
-    also at 512^3 (the ``_512`` keys of their rows);
+    every kernel per call against its twin at 128^3 (K4 through its
+    steps: a Jacobi call runs JACOBI_N iterations), and K4's Jacobi, K5's
+    and K6's also at 512^3 (the ``_512`` keys of their rows);
 13. the distributed kernels against their twins: one block at a time at
     nonzero offsets, K7 (dist_rb_sweeps) on the (2, 2, 2) blocks of 128^3
     at n = 2, 6 and the one-iteration form n = 1 on the depth-12 ring,
@@ -77,13 +82,17 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     every variant with and without b, and a (2, 1, 1) mesh ragged in J;
     then K8 over all eight blocks of 128^3 in one launch (sweep_blocks),
     every variant, the face exchange (one launch, and gather then scatter)
-    and the residual fold (dist_halo.py); float32 bitwise, float64 within
-    1e-14, residuals to rtol 1e-5, the fold to 1e-15;
+    and the residual fold (dist_halo.py); K7 over the eight extended
+    blocks of 128^3 in one launch (n = 6, 1 and MAF 2) and the pack
+    path's one-launch ring refresh against its twin and the three-phase
+    transitive copy, edges and corners included; float32 bitwise,
+    float64 within 1e-14, residuals to rtol 1e-5, the fold to 1e-15;
 14. solve_dist with eight blocks on the card (``make_mesh(..., devices=
     ["cuda:0"] * 8)``), each path with the counts zeroed just before and
     read just after: at 128^3 f32 sor2sma pack (the serial count exactly,
-    history to rtol 1e-5, the field at the stop bit for bit), sor2sma_maf
-    pack (the same), sor2sma 'color' (the serial count), jacobi at omega
+    history to rtol 1e-5, the field at the stop bit for bit; two launches
+    a call, the ring refresh and K7), sor2sma_maf pack (the same),
+    sor2sma 'color' (the serial count), jacobi at omega
     0.8 (the serial count), 'overlap' (the 'color' field bit for bit), each
     with its K8/K9 step launches an iteration, 60 fixed sweeps of 'iter'
     against its twin (bitwise; 60 launches each of K8, exchange and fold);
@@ -91,8 +100,8 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
 15. times the distributed steps per iteration at 128^3 (pack, 'color',
     'overlap', jacobi, with the device time, device launches and busy
     share an iteration under torch.profiler) and 512^3 (pack, 'color')
-    over (2, 2, 2) beside the serial n = 6 chain, K7 per call on a 64^3
-    block, and K8, the exchange and the fold per launch over the eight
+    over (2, 2, 2) beside the serial n = 6 chain, and K7, the ring
+    refresh, K8, the face exchange and the fold per launch over the eight
     blocks, against their twins;
 16. K9 (block_pcr, its launch over one block) against its twin in every
     variant, 'pcr' and 'fastdiag', constant and MAF, colours 0, 1 and the
@@ -243,6 +252,7 @@ def main():
             w.launches = 0
             w.variant_launches = {}
         dist_halo.halo_exchange.launches = dist_halo.fold_partials.launches = 0
+        k7.exchange_packed.launches = 0
 
     def read_counts():
         out = {}
@@ -255,6 +265,7 @@ def main():
             out[v] = k9.block_pcr.variant_launches.get(v, 0)
         out["halo_exchange"] = dist_halo.halo_exchange.launches
         out["fold_partials"] = dist_halo.fold_partials.launches
+        out["pack_exchange"] = k7.exchange_packed.launches
         return out
 
     # the launches of the dist K8/K9 steps: exchange, sweep, fold
@@ -299,10 +310,13 @@ def main():
         return lambda sh, dt, off, mc, pl: make(sh, dt, omega=OMEGA, offset=off,
                                                 mc=mc, plain=pl, **kw)
 
-    def unpacked(kind, bz):
-        return lambda sh, dt, off, mc, pl: k4.make_fused_sweep(
-            kind, sh, dt, omega=OMEGA if kind == "sor2sma" else OMEGA_J,
-            offset=off, b_is_zero=bz, mc=mc, plain=pl)
+    def unpacked(kind, bz, single=False):
+        def build(sh, dt, off, mc, pl):
+            st = k4.make_fused_sweep(
+                kind, sh, dt, omega=OMEGA if kind == "sor2sma" else OMEGA_J,
+                offset=off, b_is_zero=bz, mc=mc, plain=pl)
+            return st.single if single else st
+        return build
 
     def line_step(kind, bz):
         if kind == "rbl":
@@ -344,10 +358,14 @@ def main():
          packed(rb.make_packed_sweepnx, n=n))
         for n in (3, 6)
     ] + [
-        (f"K4 {kind}{' MAF' if maf else ''} b={'0' if bz else 'b'}",
+        # K4's one-pass red-black step, and its Jacobi step (JACOBI_N
+        # iterations a launch) and single form (one)
+        (f"K4 {kind}{' single' if single else ''}{' MAF' if maf else ''} "
+         f"b={'0' if bz else 'b'}",
          f"k4_{'jacobi' if kind == 'jacobi' else 'rb_color'}"
-         f"{'_maf' if maf else ''}", new_shapes, maf, unpacked(kind, bz))
-        for kind in k4.KINDS for maf in (False, True) for bz in (True, False)
+         f"{'_maf' if maf else ''}", new_shapes, maf, unpacked(kind, bz, single))
+        for kind, single in (("sor2sma", False), ("jacobi", False), ("jacobi", True))
+        for maf in (False, True) for bz in (True, False)
     ] + [
         (f"{kind}{' MAF' if maf else ''} b={'0' if bz else 'b'}",
          f"{variant}{'_maf' if maf else ''}", shapes, maf, line_step(kind, bz))
@@ -511,6 +529,15 @@ def main():
         ek, lk = max_error_loc(p.grid, r.x)
         ep, lp = max_error_loc(p.grid, rp.x)
         check(abs(ek - ep) <= 1e-5, f"{name}: Error max {ek} vs plain {ep}")
+        if name.startswith("jacobi"):
+            # one K4 launch a call of JACOBI_N iterations; run_iterative's
+            # whole chunks run up to 15 iterations past the stop, and its
+            # replay of the stopping chunk takes up to 16 one-iteration calls
+            (v,) = variants
+            most = -(-(r.iters + 15) // k4.JACOBI_N) + 16
+            check(cnt[v] <= most, f"{name}: {cnt[v]} K4 launches for {r.iters} "
+                  f"iterations (at most {most})")
+            cnt["K4 launches an iteration"] = round(cnt[v] / r.iters, 3)
         print(f"{name} 128^3 f32 omega {omega}: {r.iters} iterations (f32 "
               f"oracle {len(load_history(oracle))}), res {r.res:e}, history "
               f"rtol {worst:.2e} (vs {curve or oracle}), "
@@ -540,9 +567,13 @@ def main():
                           ("sor2sma_maf", "k4_rb_color_maf")):
         p, r, rp, wall, cnt = drive(name, OMEGA, 125, (variant,))
         check(torch.equal(r.x, rp.x), f"{name} 125^3: field != plain twin's")
+        # one launch an iteration (both colours), and the replay's
+        check(r.iters <= cnt[variant] <= r.iters + 16,
+              f"{name} 125^3: {cnt[variant]} K4 launches for {r.iters} iterations")
         print(f"{name} 125^3 f32 (odd I, K4): {r.iters} iterations, res "
-              f"{r.res:e}, wall {wall:.3f} s, launches {cnt}, field bitwise "
-              f"equal to the plain twin's {tag}", flush=True)
+              f"{r.res:e}, wall {wall:.3f} s, launches {cnt} (one a "
+              f"red-black iteration), field bitwise equal to the plain "
+              f"twin's {tag}", flush=True)
 
     # ---- 9. the line solvers ---------------------------------------------------
     stamp(9)
@@ -802,6 +833,24 @@ def main():
     tab = rb.maf_tables(Problem.poisson_cube(128, device=dev, maf=True).mc,
                         sh, f32)
     out = torch.empty_like(xu)  # line-Jacobi's second field
+    mc128 = Problem.poisson_cube(128, device=dev, maf=True).mc
+
+    def k4_calls(kind, x, mc):
+        """(kernel, twin) calls of K4's step on x's shape, each handing the
+        step the field its last call returned."""
+        out_ = []
+        for plain in (False, True):
+            st = k4.make_fused_sweep(kind, tuple(x.shape), x.dtype,
+                                     omega=OMEGA_J if kind == "jacobi" else OMEGA,
+                                     b_is_zero=True, mc=mc, plain=plain)
+            held = [x.clone()]
+
+            def run(st=st, held=held):
+                held[0], r2 = st(held[0], None)
+                return r2
+            out_.append(run)
+        return tuple(out_)
+
     calls = {
         "rb_color": (lambda: rb.rb_color(xs, None, 0, OMEGA),
                      lambda: rb.rb_color_plain(xs, None, 0, OMEGA)),
@@ -815,14 +864,12 @@ def main():
         "rb_sweeps_n_maf_chain": (
             lambda: rb.rb_sweeps_n(xs, None, 6, OMEGA, tab=tab),
             lambda: rb.packed_sweeps_plain(xs, None, 6, OMEGA, tab=tab)),
-        "k4_jacobi": (lambda: k4.jacobi_k4(xu, None, OMEGA_J),
-                      lambda: k4.jacobi_plain(xu, None, OMEGA_J)),
-        "k4_jacobi_maf": (lambda: k4.jacobi_k4(xu, None, OMEGA_J, tab),
-                          lambda: k4.jacobi_plain(xu, None, OMEGA_J, tab)),
-        "k4_rb_color": (lambda: k4.sor2sma_k4(xu, None, OMEGA),
-                        lambda: k4.sor2sma_plain(xu, None, OMEGA)),
-        "k4_rb_color_maf": (lambda: k4.sor2sma_k4(xu, None, OMEGA, tab=tab),
-                            lambda: k4.sor2sma_plain(xu, None, OMEGA, tab=tab)),
+        # K4 through its steps, as the paths call it: a Jacobi call runs
+        # JACOBI_N iterations, a red-black call one, into the step's buffers
+        "k4_jacobi": k4_calls("jacobi", xu, None),
+        "k4_jacobi_maf": k4_calls("jacobi", xu, mc128),
+        "k4_rb_color": k4_calls("sor2sma", xu, None),
+        "k4_rb_color_maf": k4_calls("sor2sma", xu, mc128),
         "rbl": (lambda: k5.rbl(xl, None, OMEGA),
                 lambda: k5.rbl_plain(xl, None, OMEGA)),
         "rbl_maf": (lambda: k5.rbl(xl, None, OMEGA, tab=tab),
@@ -849,16 +896,18 @@ def main():
               f"plain twin {per_call[name][1]:.4f} ms {tag}")
     check(all(bool(torch.isfinite(t).all()) for t in (xs, xu, xl, out)),
           "timing fields not finite")
-    # K5 and K6 at 512^3 too, where the bytes bound them: the same calls,
-    # kernel against twin in turns (the twins loop over k in Python: one
-    # call each side)
+    # K4's Jacobi, K5 and K6 at 512^3 too, where the bytes bound them: the
+    # same calls, kernel against twin in turns (the line twins loop over k
+    # in Python: one call each side)
     sh5 = (512, 512, 512)
     xl5 = k5.pack_rb_lines(torch.rand(sh5, device=dev, generator=dgen) * 2 - 1)
     xu5 = torch.rand(sh5, device=dev, generator=dgen) * 2 - 1
     out5 = torch.empty_like(xu5)
-    tab5 = rb.maf_tables(Problem.poisson_cube(512, device=dev, maf=True).mc,
-                         sh5, f32)
+    mc512 = Problem.poisson_cube(512, device=dev, maf=True).mc
+    tab5 = rb.maf_tables(mc512, sh5, f32)
     calls512 = {
+        "k4_jacobi": k4_calls("jacobi", xu5, None),
+        "k4_jacobi_maf": k4_calls("jacobi", xu5, mc512),
         "rbl": (lambda: k5.rbl(xl5, None, OMEGA),
                 lambda: k5.rbl_plain(xl5, None, OMEGA)),
         "rbl_maf": (lambda: k5.rbl(xl5, None, OMEGA, tab=tab5),
@@ -885,7 +934,7 @@ def main():
               f"plain twin {per_call_512[name][1]:.4f} ms {tag}", flush=True)
     check(all(bool(torch.isfinite(t).all()) for t in (xl5, xu5, out5)),
           "512^3 line timing fields not finite")
-    del xl5, xu5, out5, tab5, calls512
+    del xl5, xu5, out5, tab5, calls512, mc512
 
     # the least work of each call above: (bytes that must move, each input
     # read once and each output written once; operations), float32 at
@@ -902,8 +951,10 @@ def main():
         "rb_sweeps_n": (2 * fb, 6 * 11 * inner),
         "rb_sweeps_n_maf": (3 * fb, 2 * 21 * inner),
         "rb_sweeps_n_maf_chain": (2 * fb, 6 * 20 * inner),
-        "k4_jacobi": (2 * fb, 11 * inner),
-        "k4_jacobi_maf": (2 * fb, 20 * inner),
+        # a K4 Jacobi call runs JACOBI_N iterations, reading x and writing
+        # out once; a red-black call one iteration, both colours
+        "k4_jacobi": (2 * fb, k4.JACOBI_N * 11 * inner),
+        "k4_jacobi_maf": (2 * fb, k4.JACOBI_N * 20 * inner),
         "k4_rb_color": (2 * fb, 11 * inner),
         "k4_rb_color_maf": (2 * fb, 20 * inner),
         "rbl": (2 * fb, 14 * inner),
@@ -1035,10 +1086,74 @@ def main():
         check(e <= 1e-15 * float(parts.double().sum()), f"fold differs by {e}")
         n_cmp += 2
     del xs, bb8, got, want, split, st
+
+    def packed_ring_state(gshape, div, hs, dtype, cm):
+        """Extended packed blocks of a seeded field whose ring cells inside
+        the grid hold other seeded values (as K7 leaves them); cells past
+        the grid keep the packing's zeros."""
+        st = dist_pack.to_packed_state(cm, rand(gshape, dtype).to(dev), hs)
+        bs = cm.block_shape(gshape)
+        Ke, Ie, Je, _ = k7.ext_dims(bs, hs)
+        for b, o in enumerate(cm.offsets(gshape)):
+            idx = [torch.arange(e, device=dev) + (oo - h)
+                   for e, oo, h in zip((Ke, Ie, Je), o, hs)]
+            inside = ((idx[0] >= 0) & (idx[0] < gshape[0]))[:, None, None] & (
+                (idx[1] >= 0) & (idx[1] < gshape[1]))[None, :, None] & (
+                (idx[2] >= 0) & (idx[2] < gshape[2]))[None, None, :]
+            st[b] = torch.where(k7.pack_rb(inside.to(dtype)) > 0,
+                                rand(tuple(st[b].shape), dtype).to(dev), st[b])
+        return st
+
+    # the pack step's launches on the card: K7 over all eight extended
+    # blocks of 128^3 in one launch (n = 6, its one-iteration form on the
+    # depth-12 ring, MAF n = 2) against its twin on each block, and the
+    # one-launch ring refresh against its twin (the owner gather) and the
+    # three-phase transitive copy, edges and corners included
+    g8 = (128, 128, 128)
+    for dtype in (f32, f64):
+        tol = 0.0 if dtype == f32 else 1e-14
+        mc8 = stretched_mc(g8, dtype)
+        for n, h, maf in ((6, 12, False), (1, 12, False), (2, 4, True)):
+            hs8 = (h, h, h)
+            kern = k7.make_dist_packed_sweepnx(bs8, g8, dtype, omega=OMEGA, n=n,
+                                               h=h, mc=mc8 if maf else None)
+            tabs = [kern.block_tables(o, dev) for o in org8] if maf else None
+            xs = packed_ring_state(g8, (2, 2, 2), hs8, dtype, cm8)
+            want = [x.clone() for x in xs]
+            before = k7.dist_rb_sweeps.launches
+            r_k = k7.BlockRbSweeps(n, OMEGA, bs8, g8, hs8, org8)(xs, tabs)
+            r_p = torch.stack([
+                k7.dist_sweeps_plain(w, n, OMEGA, k7.geometry(bs8, g8, hs8, o), t)
+                for w, o, t in zip(want, org8, tabs or [None] * 8)]).sum(0)
+            sync()
+            where = f"K7 8 blocks n={n} h={h} maf={maf} {dtype}"
+            check(k7.dist_rb_sweeps.launches == before + 1, f"{where}: launches")
+            name = "dist_rb_sweeps" + ("_maf" if maf else "")
+            e = max(float((g - w).abs().max()) for g, w in zip(xs, want))
+            err[name] = max(err.get(name, 0.0), e)
+            rel = float(((r_k - r_p).abs() / r_p.abs()).max())
+            check(e <= tol, f"field differs by {e}: {where}")
+            check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
+            # the refresh, of the field K7 left
+            got = [x.clone() for x in xs]
+            before = k7.exchange_packed.launches
+            k7.PackExchange((2, 2, 2), bs8, hs8)(got)
+            twin = k7.exchange_packed_plain([x.clone() for x in xs], (2, 2, 2),
+                                            bs8, hs8)
+            trans = dist_pack.exchange_ghosts_packed([x.clone() for x in xs],
+                                                     cm8, bs8, hs8)
+            sync()
+            check(k7.exchange_packed.launches == before + 1,
+                  f"pack exchange h={h}: launches")
+            e = max(float((g - w).abs().max()) for g, w in zip(got + twin, trans * 2))
+            err["pack_exchange"] = max(err.get("pack_exchange", 0.0), e)
+            check(e == 0.0, f"pack exchange h={h} {dtype} differs by {e}")
+            n_cmp += 2
+    del xs, want, got, twin, trans
     print(f"distributed kernels vs plain twins: {n_cmp} comparisons passed "
           f"(f32 bitwise, f64 <= 1e-14); max |field diff| "
           + ", ".join(f"{k} {v:.3e}" for k, v in sorted(err.items())
-                      if k.startswith(("dist", "block", "halo", "fold"))),
+                      if k.startswith(("dist", "block", "halo", "fold", "pack"))),
           flush=True)
 
     # ---- 14. solve_dist on the card --------------------------------------------
@@ -1069,11 +1184,21 @@ def main():
         return float(((a.history - b.history) / b.history).abs().max())
 
     dist_tag = "(2, 2, 2), 8 blocks on the card"
+    def pack_launches(cnt, variant, what):
+        """On one card a pack call is the ring refresh and one K7 launch
+        (which folds r2 on the card): no face exchange, no fold launch."""
+        c = read_counts()
+        check(cnt["pack_exchange"] == cnt[variant] and not c["halo_exchange"]
+              and not c["fold_partials"], f"{what}: launches {cnt}")
+        cnt["launches a call"] = (cnt["pack_exchange"] + cnt[variant]) / cnt[variant]
+
     for name, variant in (("sor2sma", "dist_rb_sweeps"),
                           ("sor2sma_maf", "dist_rb_sweeps_maf")):
         p = Problem.poisson_cube(128, device=dev, maf=name.endswith("_maf"))
         s_ = solve(p, name, omega=OMEGA, itr_max=10000)
-        r, wall, cnt = drive_dist(name, OMEGA, p, cm128, "pack", (variant,))
+        r, wall, cnt = drive_dist(name, OMEGA, p, cm128, "pack",
+                                  (variant, "pack_exchange"))
+        pack_launches(cnt, variant, f"{name} pack")
         worst = hist_rtol(r, s_)
         check(r.iters == s_.iters, f"{name} pack: {r.iters} vs serial {s_.iters}")
         check(worst <= 1e-5, f"{name} pack: history rtol {worst}")
@@ -1133,7 +1258,8 @@ def main():
     p512 = Problem.poisson_cube(512, device=dev)
     cm512 = make_mesh((512, 512, 512), devices=[dev] * 8, div=(2, 2, 2))
     r, wall, cnt = drive_dist("sor2sma", OMEGA, p512, cm512, "pack",
-                              ("dist_rb_sweeps",))
+                              ("dist_rb_sweeps", "pack_exchange"))
+    pack_launches(cnt, "dist_rb_sweeps", "512^3 pack")
     check(r.iters == iters512, f"512^3 pack: {r.iters} vs serial {iters512}")
     check(torch.equal(r.x, x512), "512^3 pack: field != the serial one")
     print(f"solve_dist sor2sma 512^3 f32 pack {dist_tag}: {r.iters} iterations "
@@ -1228,20 +1354,38 @@ def main():
                   f"{prof} {tag}", flush=True)
         del p, cm, ser, pk, steps
 
-    # K7 per call on a 64^3 block of 128^3 over (2, 2, 2) (origin (64, 64,
-    # 64)); K8, the exchange and the fold per launch over all eight blocks;
+    # K7 and the ring refresh per call as the pack step makes them, one
+    # launch over the eight extended blocks of 128^3 over (2, 2, 2); K8,
+    # the face exchange and the fold per launch over all eight blocks;
     # each against its twin in turns
-    bsz, gsz, origin = (64, 64, 64), (128, 128, 128), (64, 64, 64)
+    bsz, gsz = (64, 64, 64), (128, 128, 128)
     mc = Problem.poisson_cube(128, device=dev, maf=True).mc
-    k7c = k7.make_dist_packed_sweepnx(bsz, gsz, omega=OMEGA, n=6)
-    k7p = k7.make_dist_packed_sweepnx(bsz, gsz, omega=OMEGA, n=6, plain=True)
     k7m = k7.make_dist_packed_sweepnx(bsz, gsz, omega=OMEGA, n=2, mc=mc)
-    k7mp = k7.make_dist_packed_sweepnx(bsz, gsz, omega=OMEGA, n=2, mc=mc,
-                                       plain=True)
-    tab7 = k7m.block_tables(origin, dev)
-    e7, e7m = k7.ext_dims(bsz, k7c.hs), k7.ext_dims(bsz, k7m.hs)
-    x7 = rand((2, e7[0], e7[3], e7[2]), f32).to(dev)
-    x7m = rand((2, e7m[0], e7m[3], e7m[2]), f32).to(dev)
+    tab7 = [k7m.block_tables(o, dev) for o in org8]
+    hs6, hs2 = (12, 12, 12), k7m.hs
+    e7, e7m = k7.ext_dims(bsz, hs6), k7.ext_dims(bsz, hs2)
+    x7 = packed_ring_state(gsz, (2, 2, 2), hs6, f32, cm8)
+    x7m = packed_ring_state(gsz, (2, 2, 2), hs2, f32, cm8)
+
+    def k7call(n, hs, xs, tabs):
+        """(kernel, twin) of the pack step's K7 launch over the blocks."""
+        launch = k7.BlockRbSweeps(n, OMEGA, bsz, gsz, hs, org8)
+
+        def twin():
+            return [k7.dist_sweeps_plain(x, n, OMEGA, k7.geometry(bsz, gsz, hs, o), t)
+                    for x, o, t in zip(xs, org8, tabs or [None] * 8)]
+        return (lambda: launch(xs, tabs)), twin
+
+    def ring_cells(hs):
+        """Ring cells inside the grid over the eight blocks (the cells the
+        refresh writes)."""
+        cells = 0
+        for o in org8:
+            inside = 1
+            for g, oo, h, l in zip(gsz, o, hs, bsz):
+                inside *= min(oo + l + h, g) - max(oo - h, 0)
+            cells += inside - bsz[0] * bsz[1] * bsz[2]
+        return cells
     x8 = [rand(k8.block_layout(bsz), f32).to(dev) for _ in range(8)]
     o8 = [torch.empty_like(x) for x in x8]
     res8 = dist_halo.Residual(dev)
@@ -1259,9 +1403,10 @@ def main():
     parts8 = torch.rand(2 * 576, device=dev, generator=dgen)
     st8 = torch.empty(8 * dist_halo.staging_size(bsz), device=dev)
     dcalls = {
-        "dist_rb_sweeps": (lambda: k7c(x7, origin), lambda: k7p(x7, origin)),
-        "dist_rb_sweeps_maf": (lambda: k7m(x7m, origin, tab7),
-                               lambda: k7mp(x7m, origin, tab7)),
+        "dist_rb_sweeps": k7call(6, hs6, x7, None),
+        "dist_rb_sweeps_maf": k7call(2, hs2, x7m, tab7),
+        "pack_exchange": ((lambda ex=k7.PackExchange((2, 2, 2), bsz, hs6): ex(x7)),
+                          lambda: k7.exchange_packed_plain(x7, (2, 2, 2), bsz, hs6)),
         "halo_exchange": (lambda ex=dist_halo.Exchange(table8): ex(x8),
                           lambda: dist_halo.halo_exchange_plain(x8, table8)),
         "fold_partials": (lambda: dist_halo.fold_partials(parts8, parts8.numel()),
@@ -1286,25 +1431,27 @@ def main():
             library[name]()
             lib_ms = events_ms(library[name], 50)
         per_call[name] = (min(k1, k2), min(p1, p2), lib_ms)
-        what = ("a 64^3 block of 128^3 (2, 2, 2)" if name.startswith("dist_rb")
-                else "the eight 64^3 blocks of 128^3 (2, 2, 2) in one launch")
+        what = "the eight 64^3 blocks of 128^3 (2, 2, 2) in one launch"
         print(f"per call on {what}, f32: {name} {per_call[name][0]:.4f} ms, plain "
               f"twin {per_call[name][1]:.4f} ms"
               + ("" if lib_ms is None else f", library {lib_ms:.4f} ms") + f" {tag}")
-    check(all(bool(torch.isfinite(t).all()) for t in [x7, x7m] + x8),
+    check(all(bool(torch.isfinite(t).all()) for t in x7 + x7m + x8),
           "dist timing fields not finite")
-    # their least work: K7 reads and writes the extended block once, n
-    # iterations over its interior; K8 reads the eight ghosted blocks and
+    # their least work: K7 reads and writes the eight extended blocks once,
+    # n iterations over their interiors; the ring refresh reads and writes
+    # the ring cells inside the grid; K8 reads the eight ghosted blocks and
     # writes what it updates (the shell pass: the shell, the ghost planes
     # and the layer inside); the exchange reads and writes the 24 faces that
     # have a neighbour; the fold reads its partials
     gb = 8 * 4 * 66**3
     shell = 64**3 - 62**3
     work.update({
-        "dist_rb_sweeps": (2 * 4 * e7[0] * e7[1] * e7[2],
-                           6 * 11 * (e7[0] - 2) * (e7[1] - 2) * (e7[2] - 2)),
-        "dist_rb_sweeps_maf": (2 * 4 * e7m[0] * e7m[1] * e7m[2],
-                               2 * 20 * (e7m[0] - 2) * (e7m[1] - 2) * (e7m[2] - 2)),
+        "dist_rb_sweeps": (8 * 2 * 4 * e7[0] * e7[1] * e7[2],
+                           8 * 6 * 11 * (e7[0] - 2) * (e7[1] - 2) * (e7[2] - 2)),
+        "dist_rb_sweeps_maf": (8 * 2 * 4 * e7m[0] * e7m[1] * e7m[2],
+                               8 * 2 * 20 * (e7m[0] - 2) * (e7m[1] - 2)
+                               * (e7m[2] - 2)),
+        "pack_exchange": (2 * 4 * ring_cells(hs6), 0),
         "block_sweep_jacobi": (2 * gb, 8 * 11 * 64**3),
         "block_sweep_colour": (1.5 * gb, 8 * 11 * 64**3 / 2),
         "block_sweep_both": (2 * gb, 8 * 11 * 64**3),
@@ -1674,6 +1821,9 @@ def main():
         "line_rb_maf": (lines_cu, k6_site),
         "dist_rb_sweeps": (dist_rbpack_cu, k7_site),
         "dist_rb_sweeps_maf": (dist_rbpack_cu, k7_site),
+        # the ring refresh has no pallas_call: the JAX package's
+        # exchange_ghosts_packed moves the ring by lax.ppermute
+        "pack_exchange": (dist_rbpack_cu, "cubez_tpu/parallel/dist_pack.py:50"),
         "block_sweep_jacobi": (dist_sweeps_cu, k8_site),
         "block_sweep_colour": (dist_sweeps_cu, k8_site),
         "block_sweep_both": (dist_sweeps_cu, k8_site),

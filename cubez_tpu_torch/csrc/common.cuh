@@ -35,22 +35,40 @@ struct MafTables {
         c2(t + 3 * K + 3 * I + 2 * J) {}
 };
 
-// dp of the MAF contract at a point (physical k, i, j) from its six
-// neighbours and centre: r = fma(wzm, zm, wzp*zp), then fma for x+, x-, y+,
-// y- in that order, r += b (with a right-hand side, b != nullptr),
+// One axis's MAF weights at an index: (wzm, wzp, c3) of a plane k,
+// (wxp, wxm, c1) of a row i, (wyp, wym, c2) of a column j.
+template <typename T>
+struct AxisWeights {
+  T w0, w1, c;
+};
+
+// dp of the MAF contract at a point from its axes' weights, its six
+// neighbours and centre: r = fma(wzm, zm, wzp*zp), then fma for x+, x-,
+// y+, y- in that order, r += b (with a right-hand side, b != nullptr),
 // dp = (r / dd - centre) * omega with dd = 2 ((c1 + c2) + c3).
+template <typename T>
+__device__ __forceinline__ T maf_dp(const AxisWeights<T>& wk, const AxisWeights<T>& wi,
+                                    const AxisWeights<T>& wj, T zm, T zp, T xp, T xm, T yp,
+                                    T ym, const T* b, T cen, T omega) {
+  T r = fma_rn(wk.w0, zm, mul_rn(wk.w1, zp));
+  r = fma_rn(wi.w0, xp, r);
+  r = fma_rn(wi.w1, xm, r);
+  r = fma_rn(wj.w0, yp, r);
+  r = fma_rn(wj.w1, ym, r);
+  if (b != nullptr) r = add_rn(r, *b);
+  const T dd = mul_rn(T(2), add_rn(add_rn(wi.c, wj.c), wk.c));
+  return mul_rn(sub_rn(div_rn(r, dd), cen), omega);
+}
+
+// The same at physical point (k, i, j), its weights read from the tables.
 template <typename T>
 __device__ __forceinline__ T maf_dp(const MafTables<T>& w, unsigned k, unsigned i, unsigned j,
                                     T zm, T zp, T xp, T xm, T yp, T ym, const T* b, T cen,
                                     T omega) {
-  T r = fma_rn(w.wzm[k], zm, mul_rn(w.wzp[k], zp));
-  r = fma_rn(w.wxp[i], xp, r);
-  r = fma_rn(w.wxm[i], xm, r);
-  r = fma_rn(w.wyp[j], yp, r);
-  r = fma_rn(w.wym[j], ym, r);
-  if (b != nullptr) r = add_rn(r, *b);
-  const T dd = mul_rn(T(2), add_rn(add_rn(w.c1[i], w.c2[j]), w.c3[k]));
-  return mul_rn(sub_rn(div_rn(r, dd), cen), omega);
+  return maf_dp(AxisWeights<T>{w.wzm[k], w.wzp[k], w.c3[k]},
+                AxisWeights<T>{w.wxp[i], w.wxm[i], w.c1[i]},
+                AxisWeights<T>{w.wyp[j], w.wym[j], w.c2[j]}, zm, zp, xp, xm, yp, ym, b, cen,
+                omega);
 }
 
 // dp of the constant-coefficient contract: ss = ((zm+zp) + (xm+xp)) +

@@ -1,42 +1,61 @@
 // Distributed packed red-black SOR for Hopper (sm_90a): the window chain
-// of one mesh block extended by a deep ghost ring (K7).
+// on the mesh blocks of one card, each extended by a deep ghost ring (K7),
+// and the ring's refresh.
 //
 // Replaces cubez_tpu/pallas_kernels/sweeps2x.py:480 (build_nx, the window
 // chain K3) as reached through cubez_tpu/pallas_kernels/dist_rbpack.py:299
-// (make_dist_packed_sweepnx -> _dist_rb_pair_packed and its MAF form).
+// (make_dist_packed_sweepnx -> _dist_rb_pair_packed and its MAF form), and
+// for blocks that share a card the slab copies of the ring
+// (parallel/dist_pack.py::exchange_ghosts_packed, the port's counterpart
+// of the JAX package's lax.ppermute).
 //
-// State: one block's owned (lk, li, lj) cells extended by a ring of depth
-// (hz, hx, hy) (h = 2n on each split mesh axis, 0 on the others), folded by
-// colour as cuda_kernels/rbpack.py::pack_rb does: x[2][Ke][Ie/2][Je].
+// State: each block's owned (lk, li, lj) cells extended by a ring of depth
+// (hz, hx, hy) (h = 2n on each split mesh axis, 0 on the others), folded
+// by colour as cuda_kernels/rbpack.py::pack_rb does: x[2][Ke][Ie/2][Je].
 // Block extents and depths are even, so every block origin is even and the
 // extended-local colour parity is the global one.
 //
-// One cooperative launch runs n full red-black iterations (grid.sync()
-// between colours, as rb_sweeps_kernel in rbpack.cu).  A point updates
-// where its 7-point neighbourhood lies inside the extended array AND it is
-// a global inner point: the block's global origin (k0, i0, j0) and the
-// global shape arrive as arguments (the TPU kernel reads them from SMEM,
-// traced from lax.axis_index).  The ring is recomputed redundantly; after
-// m iterations the exact cells reach h - 2m outside the owned box, so with
-// h >= 2n the owned cells are bitwise the serial n-iteration result, and
-// the next exchange rewrites the ring.  The residual sums dp^2 over the
-// owned box only, so no cell counts twice across blocks.
+// dist_rb_sweeps_kernel: one cooperative launch over every block of the
+// card runs n full red-black iterations, with a grid-wide sync between
+// colours: 2n syncs a call.  The blocks' pointers, MAF tables and origins
+// go by value in a __grid_constant__ struct (up to kMaxBlocks).  A work
+// item is one (block, k, i2) row with the lanes of a warp over j: the row
+// costs a few divisions, a point none.  A point updates where its 7-point
+// neighbourhood lies inside the extended array AND it is a global inner
+// point.  The ring is recomputed redundantly; after m iterations the exact
+// cells reach h - 2m outside the owned box, so with h >= 2n the owned
+// cells are bitwise the serial n-iteration result, and the next exchange
+// rewrites the ring.  The residual sums dp^2 over the owned boxes only,
+// so no cell counts twice across blocks.
 //
-// Arithmetic: common.cuh packed_dp (const_dp / maf_dp), bitwise equal to the
-// serial packed kernels and to the plain twin
+// pack_exchange_kernel: the ring refresh of every block of the mesh (all
+// on this card) in one launch: every ring cell on a split axis, edges and
+// corners included, is copied from the block that owns its global cell
+// (one hop along up to three axes, since h <= the block extent); cells
+// past the grid are left as they are.  That is bitwise what the
+// three-phase transitive slab copy gives (phase Z, then X, then Y, each
+// carrying the axes already refreshed): the last phase to write a cell
+// wrote the owner's value.  Reads touch owned cells only and writes ring
+// cells only, so one launch has no race.  A work item is one (block,
+// colour, k, i2) row, lanes over j; an owned row visits its J ring only.
+//
+// Arithmetic: common.cuh packed_dp (const_dp / maf_dp), bitwise equal to
+// the serial packed kernels and to the plain twin
 // (cuda_kernels/dist_rbpack.py::dist_sweeps_plain).  The MAF weights are
-// the serial tables sliced at the block's extended origin (guard entries
+// the serial tables sliced at each block's extended origin (guard entries
 // 1.0 outside the grid, where no point updates).
 //
-// What bounds it on an H100: the same as rb_sweeps_kernel, on the extended
-// block: at 128^3 over (2,2,2) a block is 64^3 owned, 88^3 extended with
-// n = 6 (2.6x the owned cells), and stays in the 50 MB L2, so per-point
-// instructions and grid syncs bound it; at 512^3 a 280^3 block (88 MB)
-// streams from HBM on each colour pass.  Blocks of one card run one launch
-// after another; batching them is later work.
+// What bounds it on an H100: at 128^3 over (2,2,2) each block is 64^3
+// owned, 88^3 extended with n = 6; the eight take 21.8 MB and stay in the
+// 50 MB L2, so per-point instructions, the grid syncs and the host's
+// launches bound it (the one-launch-a-block design paid 8 launches, up to
+// 48 slab copies and a host fold a call); at 512^3 a 280^3 block (88 MB)
+// streams from HBM on each colour pass.
 //
-// Residuals: per-block partials in the field's type in a fixed order,
-// folded in float64 by block 0 after the last grid sync (no atomics).
+// Residuals: one partial a CTA for each (iteration, colour), in the field's
+// type; after the last grid sync CTA q folds iteration q's partials in
+// float64 in a fixed order into r2[q]: no atomics, so the history is the
+// same bit for bit from run to run.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -52,66 +71,128 @@ namespace {
 using namespace cz;
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBlocks = 32;  // blocks in one launch (dist_rbpack.py MAX_BLOCKS)
 
-// The block's place in the global grid.
-struct DistGeom {
-  int hz, hx, hy;  // ring depth per axis
-  int lk, li, lj;  // owned extents
-  int k0, i0, j0;  // global origin of the owned cells
-  int Kg, Ig, Jg;  // global shape
+template <typename T>
+struct Block {
+  T* x;            // the extended packed block, updated in place
+  const T* tab;    // its MAF tables, nullptr for constant coefficients
+  int k0, i0, j0;  // global origin of its owned cells
+};
+
+template <typename T>
+struct Args {
+  Block<T> blk[kMaxBlocks];
+  T* partials;  // (n, 2, gridDim.x)
+  double* r2;   // (n,)
+  T omega;
+  int nb;           // blocks
+  int Ke, I2, Je;   // extended packed dims
+  int hz, hx, hy;   // ring depth per axis
+  int lk, li, lj;   // owned extents
+  int Kg, Ig, Jg;   // global shape
+  int n, offset;
 };
 
 template <typename T, bool kMaf>
 __global__ void __launch_bounds__(kThreads) dist_rb_sweeps_kernel(
-    T* x, const T* tab, T* partials, double* r2, int K, int I2, int J, int n,
-    int offset, T omega, unsigned n_cells, DistGeom g) {
+    const __grid_constant__ Args<T> a) {
   cg::grid_group grid = cg::this_grid();
-  const size_t plane = size_t(K) * I2 * J;
-  const unsigned nb = gridDim.x;
-  const unsigned stride = nb * kThreads;
-  const unsigned jm = J - 2;
-  const int Ie = 2 * I2;
-  for (int it = 0; it < n; ++it) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rpb = (a.Ke - 2) * a.I2;  // rows of a block: k in [1, Ke-2], every i2
+  const int rows = a.nb * rpb;
+  const size_t half = size_t(a.Ke) * a.I2 * a.Je;  // one colour
+  const int Ie = 2 * a.I2;
+  for (int it = 0; it < a.n; ++it) {
     for (int colour = 0; colour < 2; ++colour) {
-      T* c = x + colour * plane;
-      const T* o = x + (1 - colour) * plane;
       T acc = 0;
-      for (unsigned idx = blockIdx.x * kThreads + threadIdx.x; idx < n_cells;
-           idx += stride) {
-        const int j = 1 + int(idx % jm);
-        const unsigned r = idx / jm;
-        const int i2 = int(r % unsigned(I2));
-        const int k = 1 + int(r / unsigned(I2));
-        const int s = (k + j + offset + 1 + colour) & 1;
-        const int i = 2 * i2 + s;
-        const int gk = k + g.k0 - g.hz;
-        const int gi = i + g.i0 - g.hx;
-        const int gj = j + g.j0 - g.hy;
-        if (i < 1 || i > Ie - 2 || gk < 1 || gk > g.Kg - 2 || gi < 1 ||
-            gi > g.Ig - 2 || gj < 1 || gj > g.Jg - 2)
-          continue;
-        const size_t p = (size_t(k) * I2 + i2) * J + j;
-        const T cen = c[p];
-        const T dp = packed_dp<T, kMaf>(o, nullptr, tab, cen, p, k, i2, j, s, K,
-                                        I2, J, omega);
-        c[p] = add_rn(cen, dp);
+      for (int row = blockIdx.x * kWarps + warp; row < rows; row += gridDim.x * kWarps) {
+        const int bi = row / rpb;
+        const int r = row - bi * rpb;
+        const int km = r / a.I2;
+        const int k = 1 + km, i2 = r - km * a.I2;
+        const Block<T>& B = a.blk[bi];
+        const int gk = k + B.k0 - a.hz;
+        if (gk < 1 || gk > a.Kg - 2) continue;
+        T* c = B.x + colour * half;
+        const T* o = B.x + (1 - colour) * half;
         // the owned box is whole pair-rows (even depths and extents)
-        if (k >= g.hz && k < g.hz + g.lk && 2 * i2 >= g.hx &&
-            2 * i2 < g.hx + g.li && j >= g.hy && j < g.hy + g.lj)
-          acc += dp * dp;
+        const bool row_own =
+            k >= a.hz && k < a.hz + a.lk && 2 * i2 >= a.hx && 2 * i2 < a.hx + a.li;
+        const int par = k + a.offset + 1 + colour;
+        const int gi0 = 2 * i2 + B.i0 - a.hx;  // global i at s = 0
+        const int dj = B.j0 - a.hy;            // global j - local j
+        const size_t p0 = (size_t(k) * a.I2 + i2) * a.Je;
+        for (int j = 1 + lane; j <= a.Je - 2; j += 32) {
+          const int s = (par + j) & 1;
+          const int i = 2 * i2 + s;
+          const int gi = gi0 + s, gj = j + dj;
+          if (i < 1 || i > Ie - 2 || gi < 1 || gi > a.Ig - 2 || gj < 1 || gj > a.Jg - 2)
+            continue;
+          const size_t p = p0 + j;
+          const T cen = c[p];
+          const T dp = packed_dp<T, kMaf>(o, nullptr, B.tab, cen, p, k, i2, j, s, a.Ke,
+                                          a.I2, a.Je, a.omega);
+          c[p] = add_rn(cen, dp);
+          if (row_own && j >= a.hy && j < a.hy + a.lj) acc += dp * dp;
+        }
       }
       const T tot = block_sum<kThreads>(acc);
-      if (threadIdx.x == 0) partials[(size_t(it) * 2 + colour) * nb + blockIdx.x] = tot;
+      if (threadIdx.x == 0) a.partials[(size_t(it) * 2 + colour) * gridDim.x + blockIdx.x] = tot;
       grid.sync();
     }
   }
-  if (blockIdx.x == 0) {
-    for (int it = 0; it < n; ++it) {
-      double s = 0;
-      for (unsigned q = threadIdx.x; q < 2 * nb; q += kThreads)
-        s += double(partials[size_t(it) * 2 * nb + q]);
-      s = block_sum<kThreads>(s);
-      if (threadIdx.x == 0) r2[it] = s;
+  for (int it = blockIdx.x; it < a.n; it += gridDim.x) {
+    double s = 0;
+    for (int q = threadIdx.x; q < 2 * int(gridDim.x); q += kThreads)
+      s += double(a.partials[size_t(it) * 2 * gridDim.x + q]);
+    s = block_sum<kThreads>(s);
+    if (threadIdx.x == 0) a.r2[it] = s;
+  }
+}
+
+template <typename T>
+struct ExArgs {
+  T* x[kMaxBlocks];  // every block of the mesh, in mesh order
+  int nb;
+  int dz, dx, dy;    // mesh division
+  int Ke, I2, Je;    // extended packed dims
+  int hz, hx2, hy;   // ring depths (X in pair-rows)
+  int lk, li2, lj;   // owned extents (X in pair-rows)
+};
+
+// -1, 0, 1: below the owned range [h, h + l), in it, above it.
+__device__ __forceinline__ int side(int e, int h, int l) { return e < h ? -1 : (e >= h + l); }
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) pack_exchange_kernel(const __grid_constant__ ExArgs<T> a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int plane_rows = a.Ke * a.I2;
+  const int rpb = 2 * plane_rows;  // rows of a block: colour, k, i2
+  const int rows = a.nb * rpb;
+  const size_t half = size_t(a.Ke) * a.I2 * a.Je;
+  for (int row = blockIdx.x * kWarps + warp; row < rows; row += gridDim.x * kWarps) {
+    const int bi = row / rpb;
+    int r = row - bi * rpb;
+    const int c = r / plane_rows;
+    r -= c * plane_rows;
+    const int k = r / a.I2, i2 = r - k * a.I2;
+    const int dk = side(k, a.hz, a.lk), di = side(i2, a.hx2, a.li2);
+    const int bz = bi / (a.dx * a.dy), bx = (bi / a.dy) % a.dx, by = bi % a.dy;
+    const int nz = bz + dk, nx = bx + di;
+    if (nz < 0 || nz >= a.dz || nx < 0 || nx >= a.dx) continue;  // past the grid
+    const bool ring_row = dk != 0 || di != 0;
+    const int span = ring_row ? a.Je : 2 * a.hy;  // an owned row: its J ring
+    const size_t off = c * half;
+    T* dst = a.x[bi] + off + (size_t(k) * a.I2 + i2) * a.Je;
+    const size_t src0 = off + (size_t(k - dk * a.lk) * a.I2 + (i2 - di * a.li2)) * a.Je;
+    for (int t = lane; t < span; t += 32) {
+      const int j = ring_row || t < a.hy ? t : t + a.lj;
+      const int dj = side(j, a.hy, a.lj);
+      const int ny = by + dj;
+      if (ny < 0 || ny >= a.dy) continue;
+      dst[j] = a.x[(nz * a.dx + nx) * a.dy + ny][src0 + (j - dj * a.lj)];
     }
   }
 }
@@ -131,26 +212,74 @@ int max_blocks(int maf, int device, int* out) {
   return cudaSuccess;
 }
 
+// ptrs: x, tab per block, then partials and r2.  iargs: nb, Ke, I2, Je,
+// hz, hx, hy, lk, li, lj, Kg, Ig, Jg, n, offset, grid, device, then k0,
+// i0, j0 per block.  The wrapper builds both arrays once for a set of
+// blocks.
 template <typename T>
-int launch(void* x, const void* tab, void* partials, void* r2, int K, int I2, int J,
-           int n, int offset, double omega, unsigned n_cells, const int* geom,
-           int nblocks, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+int launch(void* const* ptrs, const int* iargs, double omega, void* stream) {
+  const int nb = iargs[0], grid = iargs[15];
+  if (nb < 1 || nb > kMaxBlocks || grid < 1) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(iargs[16]);
   if (e != cudaSuccess) return e;
-  T* xp = static_cast<T*>(x);
-  const T* tp = static_cast<const T*>(tab);
-  auto* pp = static_cast<T*>(partials);
-  double* rp = static_cast<double*>(r2);
-  T om = T(omega);
-  DistGeom g{geom[0], geom[1], geom[2], geom[3], geom[4],  geom[5],
-             geom[6], geom[7], geom[8], geom[9], geom[10], geom[11]};
-  void* args[] = {&xp, &tp, &pp, &rp, &K, &I2, &J, &n, &offset, &om, &n_cells, &g};
-  void* kernel = tab != nullptr
-                     ? reinterpret_cast<void*>(dist_rb_sweeps_kernel<T, true>)
+  Args<T> a{};
+  const int* org = iargs + 17;
+  for (int b = 0; b < nb; ++b)
+    a.blk[b] = Block<T>{static_cast<T*>(ptrs[2 * b]), static_cast<const T*>(ptrs[2 * b + 1]),
+                        org[3 * b], org[3 * b + 1], org[3 * b + 2]};
+  a.partials = static_cast<T*>(ptrs[2 * nb]);
+  a.r2 = static_cast<double*>(ptrs[2 * nb + 1]);
+  a.omega = T(omega);
+  a.nb = nb;
+  a.Ke = iargs[1];
+  a.I2 = iargs[2];
+  a.Je = iargs[3];
+  a.hz = iargs[4];
+  a.hx = iargs[5];
+  a.hy = iargs[6];
+  a.lk = iargs[7];
+  a.li = iargs[8];
+  a.lj = iargs[9];
+  a.Kg = iargs[10];
+  a.Ig = iargs[11];
+  a.Jg = iargs[12];
+  a.n = iargs[13];
+  a.offset = iargs[14];
+  const bool maf = a.blk[0].tab != nullptr;
+  void* kernel = maf ? reinterpret_cast<void*>(dist_rb_sweeps_kernel<T, true>)
                      : reinterpret_cast<void*>(dist_rb_sweeps_kernel<T, false>);
-  e = cudaLaunchCooperativeKernel(kernel, dim3(nblocks), dim3(kThreads), args, 0,
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// ptrs: every block in mesh order.  iargs: nb, dz, dx, dy, Ke, I2, Je, hz,
+// hx2, hy, lk, li2, lj, grid, device.
+template <typename T>
+int exchange(void* const* ptrs, const int* iargs, void* stream) {
+  const int nb = iargs[0], grid = iargs[13];
+  if (nb < 1 || nb > kMaxBlocks || grid < 1) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(iargs[14]);
+  if (e != cudaSuccess) return e;
+  ExArgs<T> a{};
+  for (int b = 0; b < nb; ++b) a.x[b] = static_cast<T*>(ptrs[b]);
+  a.nb = nb;
+  a.dz = iargs[1];
+  a.dx = iargs[2];
+  a.dy = iargs[3];
+  a.Ke = iargs[4];
+  a.I2 = iargs[5];
+  a.Je = iargs[6];
+  a.hz = iargs[7];
+  a.hx2 = iargs[8];
+  a.hy = iargs[9];
+  a.lk = iargs[10];
+  a.li2 = iargs[11];
+  a.lj = iargs[12];
+  if (a.dz * a.dx * a.dy != nb) return cudaErrorInvalidValue;
+  pack_exchange_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 
@@ -166,21 +295,20 @@ int cz_dist_rb_max_blocks_f64(int maf, int device, int* out) {
   return max_blocks<double>(maf, device, out);
 }
 
-// geom: 12 ints, DistGeom's fields in order
-int cz_dist_rb_sweeps_f32(void* x, const void* tab, void* partials, void* r2, int K,
-                          int I2, int J, int n, int offset, double omega,
-                          unsigned n_cells, const int* geom, int nblocks, int device,
-                          void* stream) {
-  return launch<float>(x, tab, partials, r2, K, I2, J, n, offset, omega, n_cells, geom,
-                       nblocks, device, stream);
+int cz_dist_rb_sweeps_f32(void* const* ptrs, const int* iargs, double omega, void* stream) {
+  return launch<float>(ptrs, iargs, omega, stream);
 }
 
-int cz_dist_rb_sweeps_f64(void* x, const void* tab, void* partials, void* r2, int K,
-                          int I2, int J, int n, int offset, double omega,
-                          unsigned n_cells, const int* geom, int nblocks, int device,
-                          void* stream) {
-  return launch<double>(x, tab, partials, r2, K, I2, J, n, offset, omega, n_cells, geom,
-                        nblocks, device, stream);
+int cz_dist_rb_sweeps_f64(void* const* ptrs, const int* iargs, double omega, void* stream) {
+  return launch<double>(ptrs, iargs, omega, stream);
+}
+
+int cz_pack_exchange_f32(void* const* ptrs, const int* iargs, void* stream) {
+  return exchange<float>(ptrs, iargs, stream);
+}
+
+int cz_pack_exchange_f64(void* const* ptrs, const int* iargs, void* stream) {
+  return exchange<double>(ptrs, iargs, stream);
 }
 
 }  // extern "C"

@@ -79,10 +79,9 @@ def _declare(lib):
             ("rb_sweeps_max_blocks", [i32, i32, ctypes.POINTER(i32)]),
             ("rb_sweeps_n", [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,
                              u32, i32, i32, vp]),
-            # sweeps.cu
-            ("k4_jacobi", [vp, vp, vp, vp, vp, i32, i32, i32, f64, i32, vp]),
-            ("k4_rb_color", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64, i32,
-                             vp]),
+            # sweeps.cu (K4: kind, n, maf, aligned, smem, device, out)
+            ("k4_max_blocks", [i32, i32, i32, i32, i32, i32, ctypes.POINTER(i32)]),
+            ("k4_sweep", [pvp, pi32, f64, vp]),
             # lines.cu (K6) and rblines.cu (K5)
             # (..., maf, lines a tile, threads, tiles, device, stream)
             ("line_j", [vp, vp, vp, vp, vp, i32, i32, i32, f64, i32, i32, i32,
@@ -93,8 +92,8 @@ def _declare(lib):
                            i32, i32, i32, i32, vp]),
             # dist_rbpack.cu (K7) and dist_sweeps.cu (K8)
             ("dist_rb_max_blocks", [i32, i32, ctypes.POINTER(i32)]),
-            ("dist_rb_sweeps", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,
-                                u32, ctypes.POINTER(i32), i32, i32, vp]),
+            ("dist_rb_sweeps", [pvp, pi32, f64, vp]),
+            ("pack_exchange", [pvp, pi32, vp]),
             ("block_sweep_max_blocks", [i32, ctypes.POINTER(i32)]),
             ("block_sweep", [pvp, pi32, f64, vp, vp]),
             # dist_halo.cu (the exchange and the fold of K8/K9's steps)

@@ -11,8 +11,10 @@ are even, so every block origin is even and the extended-local colour
 parity equals the global one: all blocks share one fold, and ghost slabs
 move between blocks as verbatim slices (parallel/dist_pack.py).
 
-One call runs ``n`` full red-black iterations (``dist_rb_sweeps``, one
-cooperative launch of csrc/dist_rbpack.cu).  A point updates where its
+One call runs ``n`` full red-black iterations on every block of a card in
+one cooperative launch of csrc/dist_rbpack.cu (``BlockRbSweeps``, which
+also folds the owned residuals on the card; ``dist_rb_sweeps`` is that
+launch on one block).  A point updates where its
 7-point neighbourhood lies in the extended array and it is a global inner
 point, from the block's global origin and the global shape; the residual
 sums dp^2 over the owned box only.  With depth h >= 2n the owned cells are
@@ -28,6 +30,12 @@ sliced at the block's extended origin; entries outside the grid are 1.0,
 as in the JAX package's ``_maf_global_tables``, and only ever meet masked
 points.
 
+The ring is refreshed before every call: ``PackExchange`` (one launch for
+all the blocks of a mesh on one card) copies every ring cell from the
+block that owns its global cell; its twin ``exchange_packed_plain`` is
+bitwise ``parallel/dist_pack.exchange_ghosts_packed``'s transitive slab
+copy.
+
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 twin ``dist_sweeps_plain`` (bitwise equal in float32).
 """
@@ -35,13 +43,16 @@ twin ``dist_sweeps_plain`` (bitwise equal in float32).
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .dist_halo import (Launches, Prepared, check_blocks, current_stream,
+                        int_array, pointer_array)
 from .rbpack import (_SUFFIX, TABLES, colour_update, count, maf_tables,
-                     pack_rb, ptr, stream, table_views, unpack_rb)
+                     pack_rb, ptr, table_views, unpack_rb)
 
 # DistGeom's fields (csrc/dist_rbpack.cu), in order
 GEOM = ("hz", "hx", "hy", "lk", "li", "lj", "k0", "i0", "j0", "Kg", "Ig", "Jg")
@@ -148,7 +159,21 @@ def _block_tables(gtab, ext, origin, device):
     ]).to(device)
 
 
-_MAX_BLOCKS: dict = {}
+MAX_BLOCKS = 32  # blocks in one launch (csrc/dist_rbpack.cu kMaxBlocks)
+_WARPS = 8  # rows in flight a CTA (csrc/dist_rbpack.cu kWarps)
+_MAX_COOP: dict = {}
+
+
+def _max_coop(device: int, dtype, maf: bool) -> int:
+    """CTAs of K7 co-resident on the card (the cooperative launch's
+    limit)."""
+    key = (device, dtype, maf)
+    if key not in _MAX_COOP:
+        out = ctypes.c_int(0)
+        _build.check(getattr(_build.load(), f"cz_dist_rb_max_blocks_{_SUFFIX[dtype]}")(
+            int(maf), device, out), "dist_rb_sweeps occupancy")
+        _MAX_COOP[key] = out.value
+    return _MAX_COOP[key]
 
 
 def _check(xp, geom, tab):
@@ -169,43 +194,176 @@ def _check(xp, geom, tab):
                          "extended block's tables, its dtype and device")
 
 
+class BlockRbSweeps:
+    """K7 over the extended packed blocks of one card in one cooperative
+    launch: ``n`` red-black iterations in place on every block, ring depths
+    ``hs``, owned ``block_shape``, global ``gshape``, ``origins`` the
+    blocks' owned origins.  ``__call__(xs, tabs=None) -> r2``: ``tabs``
+    (``make_dist_packed_sweepnx``'s ``block_tables``, one per block)
+    selects MAF; r2 the (n,) float64 owned sums of dp^2 over all the
+    blocks, folded on the card, in a buffer of the launcher's that holds
+    until its next call with the same blocks.  The launch arguments, the
+    partials and r2 are built once for each set of block pointers
+    (dist_halo.Launches).  Up to MAX_BLOCKS blocks."""
+
+    def __init__(self, n: int, omega: float, block_shape, gshape, hs, origins):
+        self.n, self.omega = n, omega
+        self.block_shape, self.gshape, self.hs = (tuple(block_shape), tuple(gshape),
+                                                  tuple(hs))
+        self.origins = [tuple(o) for o in origins]
+        if not 1 <= len(self.origins) <= MAX_BLOCKS:
+            raise ValueError(f"K7 takes 1 to {MAX_BLOCKS} blocks a launch, "
+                             f"not {len(self.origins)}")
+        self._launches = Launches(self._prepare)
+
+    def _prepare(self, xs, tabs):
+        check_blocks("dist_rb_sweeps", xs)
+        if len(xs) != len(self.origins):
+            raise ValueError(f"{len(xs)} blocks for {len(self.origins)} origins")
+        tabs = tabs or [None] * len(xs)
+        if len(tabs) != len(xs) or len({t is None for t in tabs}) != 1:
+            raise ValueError("give every block its MAF tables, or none")
+        x0 = xs[0]
+        for o, x, t in zip(self.origins, xs, tabs):
+            _check(x, geometry(self.block_shape, self.gshape, self.hs, o), t)
+        _, Ke, I2e, Je = x0.shape
+        dev = x0.get_device()
+        rows = len(xs) * max(Ke - 2, 0) * I2e
+        grid = max(1, min(_max_coop(dev, x0.dtype, tabs[0] is not None),
+                          -(-rows // _WARPS)))
+        partials = torch.empty(self.n * 2 * grid, dtype=x0.dtype, device=x0.device)
+        r2 = torch.zeros(self.n, dtype=torch.float64, device=x0.device)
+        vals = []
+        for x, t in zip(xs, tabs):
+            vals += [x.data_ptr(), ptr(t)]
+        vals += [partials.data_ptr(), r2.data_ptr()]
+        ints = [len(xs), Ke, I2e, Je, *self.hs, *self.block_shape, *self.gshape,
+                self.n, 0, grid, dev]
+        for o in self.origins:
+            ints += o
+        fn = getattr(_build.load(), f"cz_dist_rb_sweeps_{_SUFFIX[x0.dtype]}")
+        prep = Prepared(x0, fn, [(pointer_array(vals), int_array(ints), rows)])
+        prep.partials, prep.r2, prep.maf = partials, r2, tabs[0] is not None
+        return prep
+
+    def __call__(self, xs, tabs=None):
+        prep = self._launches.get(xs, tabs)
+        (parr, iarr, rows), = prep.calls
+        if rows:
+            _build.check(prep.fn(parr, iarr, self.omega, current_stream(prep.device)),
+                         "dist_rb_sweeps")
+            count(dist_rb_sweeps, True if prep.maf else None)
+        return prep.r2
+
+
 def dist_rb_sweeps(xp, n: int, omega: float, geom, tab=None):
-    """Launch ``dist_rb_sweeps_kernel``: n red-black iterations on the
-    extended packed block ``xp`` in place, in one cooperative launch;
+    """K7 on the one extended packed block ``xp``: n red-black iterations
+    in place, one cooperative launch (``BlockRbSweeps`` with one block);
     ``geom`` as ``geometry`` gives it; ``tab`` (``make_dist_packed_sweepnx``'s
     ``block_tables``) selects MAF.  Returns the (n,) float64 owned sums of
-    dp^2 on the device.  A CPU tensor runs the plain twin."""
+    dp^2 on the device.  A CPU tensor runs the plain twin.
+    ``dist_rb_sweeps.launches`` counts every K7 launch."""
     if not xp.is_cuda:
         return dist_sweeps_plain(xp, n, omega, geom, tab)
     _check(xp, geom, tab)
-    lib = _build.load()
-    sfx = _SUFFIX[xp.dtype]
-    dev = xp.device.index
-    _, Ke, I2e, Je = xp.shape
-    cells = max(Ke - 2, 0) * I2e * max(Je - 2, 0)
-    if not cells:
-        return torch.zeros(n, dtype=torch.float64, device=xp.device)
-    maf = int(tab is not None)
-    key = (sfx, maf, dev)
-    if key not in _MAX_BLOCKS:
-        out = ctypes.c_int(0)
-        _build.check(getattr(lib, f"cz_dist_rb_max_blocks_{sfx}")(maf, dev, out),
-                     "dist_rb_sweeps occupancy")
-        _MAX_BLOCKS[key] = out.value
-    nblocks = min(_MAX_BLOCKS[key], -(-cells // lib.cz_threads_per_block()))
-    partials = torch.empty(n * 2 * nblocks, dtype=xp.dtype, device=xp.device)
-    r2 = torch.empty(n, dtype=torch.float64, device=xp.device)
-    g = (ctypes.c_int * len(GEOM))(*geom)
-    rc = getattr(lib, f"cz_dist_rb_sweeps_{sfx}")(
-        xp.data_ptr(), ptr(tab), partials.data_ptr(), r2.data_ptr(), Ke, I2e, Je,
-        n, 0, omega, cells, g, nblocks, dev, stream(xp),
-    )
-    _build.check(rc, "dist_rb_sweeps")
-    count(dist_rb_sweeps, tab)
-    return r2
+    hs, bs, origin, gshape = geom[:3], geom[3:6], geom[6:9], geom[9:]
+    return BlockRbSweeps(n, omega, bs, gshape, hs, [origin])(
+        [xp], None if tab is None else [tab])
 
 
 dist_rb_sweeps.launches = dist_rb_sweeps.maf_launches = 0
+
+
+def _ring_axes(block_shape, hs):
+    """(packed dim, depth, owned extent) per mesh axis; X moves pair-rows,
+    so its depth and extent are halved."""
+    (lk, li, lj), (hz, hx, hy) = block_shape, hs
+    return ((1, hz, lk), (2, hx // 2, li // 2), (3, hy, lj))
+
+
+def exchange_packed_plain(xs, div, block_shape, hs):
+    """Twin of ``exchange_packed``: every ring cell of every extended
+    packed block (mesh order, all of the mesh's blocks; ``div`` its
+    division), edges and corners included, copied from the block that
+    owns its global cell; cells past the grid left as they are.  Bitwise
+    ``parallel/dist_pack.exchange_ghosts_packed``'s transitive copy."""
+    dz, dx, dy = div
+    axes = _ring_axes(block_shape, hs)
+    for b, x in enumerate(xs):
+        c = (b // (dx * dy), (b // dy) % dx, b % dy)
+        for d in itertools.product((-1, 0, 1), repeat=3):
+            nbc = [ci + di for ci, di in zip(c, d)]
+            if (not any(d) or any(di and not h for di, (_, h, _) in zip(d, axes))
+                    or not all(0 <= v < m for v, m in zip(nbc, div))):
+                continue
+            dst, src = [slice(None)], [slice(None)]
+            for di, (_, h, n) in zip(d, axes):
+                # below, in or above the owned range; the owner's cell is
+                # one owned extent the other way
+                lo, w = ((0, h), (h, n), (h + n, h))[di + 1]
+                dst.append(slice(lo, lo + w))
+                src.append(slice(lo - di * n, lo - di * n + w))
+            x[tuple(dst)] = xs[(nbc[0] * dx + nbc[1]) * dy + nbc[2]][tuple(src)]
+    return xs
+
+
+class PackExchange:
+    """The ring refresh of every extended packed block of a mesh whose
+    blocks all share one card, in one launch (``pack_exchange_kernel``):
+    ``div`` the mesh division, the blocks in mesh order.  Its twin is
+    ``exchange_packed_plain``; the launch arguments are built once for each
+    set of block pointers."""
+
+    def __init__(self, div, block_shape, hs):
+        self.div, self.block_shape, self.hs = tuple(div), tuple(block_shape), tuple(hs)
+        n = self.div[0] * self.div[1] * self.div[2]
+        if not 1 <= n <= MAX_BLOCKS:
+            raise ValueError(f"the one-launch exchange takes 1 to {MAX_BLOCKS} "
+                             f"blocks, not {n}")
+        self._launches = Launches(self._prepare)
+
+    def _prepare(self, xs):
+        check_blocks("exchange_packed", xs)
+        x0 = xs[0]
+        if len(xs) != self.div[0] * self.div[1] * self.div[2]:
+            raise ValueError(f"{len(xs)} blocks for a {self.div} mesh")
+        Ke, Ie, Je, I2e = ext_dims(self.block_shape, self.hs)
+        if x0.dim() != 4 or tuple(x0.shape) != (2, Ke, I2e, Je):
+            raise ValueError(f"blocks of {tuple(x0.shape)}, not the extended "
+                             f"(2, {Ke}, {I2e}, {Je})")
+        if x0.numel() >= 2**31:
+            raise ValueError("extended block too large for 32-bit indexing")
+        dev = x0.get_device()
+        rows = len(xs) * 2 * Ke * I2e
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = max(1, min(-(-rows // _WARPS), 32 * sms))
+        (_, hz, lk), (_, hx2, li2), (_, hy, lj) = _ring_axes(self.block_shape,
+                                                             self.hs)
+        ints = (len(xs), *self.div, Ke, I2e, Je, hz, hx2, hy, lk, li2, lj, grid, dev)
+        fn = getattr(_build.load(), f"cz_pack_exchange_{_SUFFIX[x0.dtype]}")
+        return Prepared(x0, fn, [(pointer_array([x.data_ptr() for x in xs]),
+                                  int_array(ints), 0)])
+
+    def __call__(self, xs):
+        prep = self._launches.get(xs)
+        (parr, iarr, _), = prep.calls
+        _build.check(prep.fn(parr, iarr, current_stream(prep.device)),
+                     "exchange_packed")
+        exchange_packed.launches += 1
+        return xs
+
+
+def exchange_packed(xs, div, block_shape, hs):
+    """Refresh the rings of the extended packed blocks ``xs`` (every block
+    of a ``div`` mesh, in mesh order) from their owners: one launch on the
+    card (a ``PackExchange`` built for this call), the twin for CPU
+    blocks."""
+    if not xs[0].is_cuda:
+        return exchange_packed_plain(xs, div, block_shape, hs)
+    return PackExchange(div, block_shape, hs)(xs)
+
+
+exchange_packed.launches = 0
 
 
 def make_dist_packed_sweepnx(block_shape, gshape, dtype=torch.float32, *,

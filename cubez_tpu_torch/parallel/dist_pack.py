@@ -4,9 +4,18 @@
 One step runs ``n`` full red-black iterations:
 
     refresh the ghost ring, depth h = 2n on each split mesh axis
-    (one slab-copy phase per split axis, in the order Z, X, Y)
-    -> one K7 launch per block (cuda_kernels/dist_rbpack.py)
+    -> K7 on the blocks (cuda_kernels/dist_rbpack.py)
     -> the (n,) owned residual sums, folded over the blocks in float64.
+
+With every block of the mesh on one card that is two launches a call: the
+one-launch ring refresh (``dist_rbpack.PackExchange``) and one cooperative
+K7 launch over all the blocks, which folds the residuals on the card
+(``dist_rbpack.BlockRbSweeps``).  Otherwise (CPU blocks, ``plain``, blocks
+on several cards, or more than ``dist_rbpack.MAX_BLOCKS`` blocks) the ring
+takes one slab-copy phase per split axis, in the order Z, X, Y
+(``exchange_ghosts_packed``), K7 runs block by block (its twin on CPU
+blocks) and ``psum_all`` folds the sums; the faces between cards are
+untested (the test rig has one card).
 
 Owned cells are bitwise the serial n-iteration result, so iteration
 counts equal the serial port's on any mesh and histories agree to the
@@ -78,9 +87,10 @@ def make_dist_packed_step(problem: Problem, cmesh: CubeMesh, omega: float, *,
     that fits: 6, 5, 4, 3, 2 for constant coefficients, 2, 3, 4 under MAF
     (``problem.mc``).  The ring covers the split mesh axes.
     ``step.single`` runs one iteration on the same ring.  ``plain`` runs
-    K7's twin on any device.  None where the path does not apply: float64,
-    a nonzero inner right-hand side, odd block extents, or blocks thinner
-    than the ring."""
+    K7's twin on any device.  On one card r2 is a buffer of the step's
+    that holds until its next call.  None where the path does not apply:
+    float64, a nonzero inner right-hand side, odd block extents, or blocks
+    thinner than the ring."""
     g = problem.grid
     if g.dtype != torch.float32 or not problem.rhs_is_inner_zero():
         return None
@@ -104,11 +114,25 @@ def make_dist_packed_step(problem: Problem, cmesh: CubeMesh, omega: float, *,
     if kern.maf:
         tabs = [kern.block_tables(o, d) for o, d in zip(origins, cmesh.devices)]
 
+    devs = set(cmesh.devices)
+    on_card = (not plain and len(devs) == 1 and next(iter(devs)).type == "cuda"
+               and cmesh.size <= dist_rbpack.MAX_BLOCKS)
+
     def make(k):
-        def step(xs, bstate):
-            exchange_ghosts_packed(xs, cmesh, bs, hs)
-            r2 = [k(xp, o, t) for xp, o, t in zip(xs, origins, tabs)]
-            return xs, psum_all(r2)
+        if on_card:
+            exchange = dist_rbpack.PackExchange(cmesh.div, bs, hs)
+            sweeps = dist_rbpack.BlockRbSweeps(k.iters_per_call, omega, bs,
+                                               g.shape_kij, hs, origins)
+            launch_tabs = tabs if kern.maf else None
+
+            def step(xs, bstate):
+                exchange(xs)
+                return xs, sweeps(xs, launch_tabs)
+        else:
+            def step(xs, bstate):
+                exchange_ghosts_packed(xs, cmesh, bs, hs)
+                r2 = [k(xp, o, t) for xp, o, t in zip(xs, origins, tabs)]
+                return xs, psum_all(r2)
 
         step.iters_per_call = k.iters_per_call
         step.hs = hs

@@ -855,3 +855,202 @@ def test_dist_solves_are_deterministic(dev, solver, div):
     r2 = czt.solve_dist(p, cm, solver, **kw)
     assert r1.iters == r2.iters
     assert torch.equal(r1.history, r2.history) and torch.equal(r1.x, r2.x)
+
+
+# ---- K4 on plane tiles; K7 and the pack ring in one launch each -------------
+
+# the main paths' shapes, odd I, the ragged one, and the tiles' edges: I and
+# J no multiple of the 32-wide tiles, K - 2 = 1 and 2, a last k chunk short
+K4_SHAPES = [(128, 128, 128), (125, 125, 125), (37, 22, 45), (3, 33, 35),
+             (4, 31, 65), (130, 45, 97)]
+
+
+@pytest.mark.parametrize("with_b", [False, True])
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_k4_tile_kernels_match_twins(dev, shape, dtype, maf, with_b):
+    """jacobi_k4 at n = 1 and JACOBI_N and sor2sma_k4 at offsets 0 and 1 against
+    their twins: float32 bitwise, float64 within 1e-14, r2 to rtol 1e-5;
+    one launch a call; x never written."""
+    tab = None
+    if maf:
+        K, I, J = shape
+        mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                                device=dev)[0].mc
+        tab = rb.maf_tables(mc, shape, dtype)
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    b = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev) if with_b else None
+    keep = x.clone()
+    tol = 0.0 if dtype == torch.float32 else 1e-14
+    for n in (1, k4.JACOBI_N):
+        before = k4.jacobi_k4.launches
+        got, rk = k4.jacobi_k4(x, b, 0.8, tab, n=n)
+        want, rp = k4.jacobi_n_plain(x, b, 0.8, tab, n)
+        torch.cuda.synchronize()
+        assert k4.jacobi_k4.launches == before + 1
+        assert float((got - want).abs().max()) <= tol, n
+        torch.testing.assert_close(rk, rp if n > 1 else rp.reshape(()), rtol=1e-5,
+                                   atol=0)
+    for offset in (0, 1):
+        before = k4.sor2sma_k4.launches
+        got, rk = k4.sor2sma_k4(x, b, OMEGA, offset, tab)
+        want = x.clone()
+        rp = k4.sor2sma_plain(want, b, OMEGA, offset, tab)
+        torch.cuda.synchronize()
+        assert k4.sor2sma_k4.launches == before + 1
+        assert float((got - want).abs().max()) <= tol, offset
+        torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+    assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("kind", ["jacobi", "sor2sma"])
+def test_k4_steps_launch_once_a_call(dev, kind):
+    """The steps make one launch a call (n = JACOBI_N Jacobi iterations, or
+    one red-black iteration) and their single forms one; the fields equal
+    the plain steps' bit for bit, the handed field is never written, and
+    two runs give the same r2 bit for bit (fixed-order fold)."""
+    shape = (40, 35, 70)
+    kw = dict(omega=0.8 if kind == "jacobi" else OMEGA, b_is_zero=True)
+    step = k4.make_fused_sweep(kind, shape, torch.float32, **kw)
+    twin = k4.make_fused_sweep(kind, shape, torch.float32, plain=True, **kw)
+    x0 = torch.rand(shape, device=dev)
+    keep = x0.clone()
+    counter = k4.jacobi_k4 if kind == "jacobi" else k4.sor2sma_k4
+    xk, xp, r2s = x0, x0.clone(), []
+    for s_k, s_p in ((step, twin), (step, twin), (step.single, twin.single)):
+        before = counter.launches
+        xk, rk = s_k(xk, None)
+        xp, rp = s_p(xp, None)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert torch.equal(xk, xp)
+        torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+        r2s.append(rk.clone())
+    assert torch.equal(x0, keep)
+    again = x0
+    for s_k, r in zip((step, step, step.single), r2s):
+        again, rk = s_k(again, None)
+        assert torch.equal(rk, r)
+
+
+# (global shape, division): cubic blocks, K-unsplit blocks, non-cubic ones
+PACK_MESHES = [((32, 32, 32), (2, 2, 2)), ((32, 32, 32), (1, 2, 2)),
+               ((24, 28, 32), (2, 2, 2)), ((32, 16, 16), (2, 1, 1))]
+
+
+def _pack_state(gshape, div, n, dev, dtype=torch.float32, seed=0):
+    """Extended packed blocks of a seeded field, on the card, whose ring
+    cells inside the grid hold other seeded values (as K7 leaves them);
+    cells past the grid keep the packing's zeros."""
+    from cubez_tpu_torch.cuda_kernels import dist_rbpack as k7
+    from cubez_tpu_torch.parallel import dist_pack
+
+    cm = czt.make_mesh(gshape, devices=[dev] * (div[0] * div[1] * div[2]), div=div)
+    hs = tuple(2 * n if d > 1 else 0 for d in div)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(gshape, generator=gen, dtype=dtype) * 2 - 1
+    st = dist_pack.to_packed_state(cm, x.to(dev), hs)
+    bs = cm.block_shape(gshape)
+    Ke, Ie, Je, _ = k7.ext_dims(bs, hs)
+    for b, o in enumerate(cm.offsets(gshape)):
+        idx = [torch.arange(e) + (oo - h) for e, oo, h in zip((Ke, Ie, Je), o, hs)]
+        inside = ((idx[0] >= 0) & (idx[0] < gshape[0]))[:, None, None] & (
+            (idx[1] >= 0) & (idx[1] < gshape[1]))[None, :, None] & (
+            (idx[2] >= 0) & (idx[2] < gshape[2]))[None, None, :]
+        noise = torch.rand(st[b].shape, generator=gen, dtype=dtype) * 2 - 1
+        st[b] = torch.where(k7.pack_rb(inside.float()).to(dev) > 0, noise.to(dev),
+                            st[b])
+    return cm, bs, hs, st
+
+
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 6])
+@pytest.mark.parametrize("mesh", range(len(PACK_MESHES)))
+def test_batched_k7_matches_twin(dev, mesh, n, dtype, maf):
+    """K7 over every block of the mesh in one launch against its twin on
+    each block: float32 bitwise, float64 within 1e-14, the folded r2 within
+    rtol 1e-5 of the twins' sums."""
+    from cubez_tpu_torch.cuda_kernels import dist_rbpack as k7
+
+    gshape, div = PACK_MESHES[mesh]
+    cm, bs, hs, xs = _pack_state(gshape, div, n, dev, dtype, seed=mesh)
+    if any(h > s for h, s in zip(hs, bs)):
+        pytest.skip("blocks thinner than the ring")
+    origins = cm.offsets(gshape)
+    tabs = None
+    if maf:
+        mc = czt.Problem.manufactured_stretched(
+            (gshape[1], gshape[2], gshape[0]), dtype=dtype, device=dev)[0].mc
+        kern = k7.make_dist_packed_sweepnx(bs, gshape, dtype, omega=OMEGA, n=n,
+                                           split=tuple(d > 1 for d in div),
+                                           mc=mc)
+        tabs = [kern.block_tables(o, dev) for o in origins]
+    keep = [x.clone() for x in xs]
+    launch = k7.BlockRbSweeps(n, OMEGA, bs, gshape, hs, origins)
+    before = k7.dist_rb_sweeps.launches
+    r2 = launch(xs, tabs)
+    want = [x.clone() for x in keep]
+    rp = [k7.dist_sweeps_plain(w, n, OMEGA, k7.geometry(bs, gshape, hs, o),
+                               None if tabs is None else t)
+          for w, o, t in zip(want, origins, tabs or [None] * len(xs))]
+    torch.cuda.synchronize()
+    assert k7.dist_rb_sweeps.launches == before + 1
+    tol = 0.0 if dtype == torch.float32 else 1e-14
+    for g, w in zip(xs, want):
+        assert float((g - w).abs().max()) <= tol
+    torch.testing.assert_close(r2, torch.stack(rp).sum(0), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 6])
+@pytest.mark.parametrize("mesh", range(len(PACK_MESHES)))
+def test_pack_exchange_matches_twins(dev, mesh, n):
+    """The one-launch ring refresh against its twin (the owner gather) and
+    the three-phase transitive copy, bitwise, edges and corners included;
+    one launch."""
+    from cubez_tpu_torch.cuda_kernels import dist_rbpack as k7
+    from cubez_tpu_torch.parallel import dist_pack
+
+    gshape, div = PACK_MESHES[mesh]
+    cm, bs, hs, xs = _pack_state(gshape, div, n, dev, seed=10 + mesh)
+    if any(h > s for h, s in zip(hs, bs)):
+        pytest.skip("blocks thinner than the ring")
+    want = dist_pack.exchange_ghosts_packed([x.clone() for x in xs], cm, bs, hs)
+    twin = k7.exchange_packed_plain([x.clone() for x in xs], div, bs, hs)
+    before = k7.exchange_packed.launches
+    got = k7.PackExchange(div, bs, hs)([x.clone() for x in xs])
+    torch.cuda.synchronize()
+    assert k7.exchange_packed.launches == before + 1
+    for g, t, w in zip(got, twin, want):
+        assert torch.equal(g, w) and torch.equal(t, w)
+
+
+@pytest.mark.parametrize("maf", [False, True])
+def test_pack_step_launches_twice_a_call(dev, maf):
+    """On one card the pack step is the ring refresh and one K7 launch a
+    call (its single form too), with no copy and no host fold; its fields
+    and r2 equal the CPU twin's."""
+    from cubez_tpu_torch.cuda_kernels import dist_rbpack as k7
+    from cubez_tpu_torch.parallel import dist_pack
+
+    g = czt.Problem.poisson_cube(32, device=dev, maf=maf)
+    c = czt.Problem.poisson_cube(32, device="cpu", maf=maf)
+    cg = czt.make_mesh((32, 32, 32), devices=[dev] * 8, div=(2, 2, 2))
+    cc = czt.make_mesh((32, 32, 32), devices=["cpu"] * 8, div=(2, 2, 2))
+    sg = dist_pack.make_dist_packed_step(g, cg, OMEGA)
+    sc = dist_pack.make_dist_packed_step(c, cc, OMEGA)
+    xg = dist_pack.to_packed_state(cg, g.x0, sg.hs)
+    xc = dist_pack.to_packed_state(cc, c.x0, sc.hs)
+    for kg, kc in ((sg, sc), (sg, sc), (sg.single, sc.single)):
+        before = (k7.exchange_packed.launches, k7.dist_rb_sweeps.launches)
+        xg, rg = kg(xg, None)
+        xc, rc = kc(xc, None)
+        torch.cuda.synchronize()
+        assert (k7.exchange_packed.launches, k7.dist_rb_sweeps.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert rg.shape == (kg.iters_per_call,)
+        for a, b in zip(xg, xc):
+            assert torch.equal(a.cpu(), b)
+        torch.testing.assert_close(rg.cpu(), rc, rtol=1e-5, atol=0)

@@ -56,7 +56,9 @@ def _mc(shape):
 @pytest.mark.parametrize("kind", ["jacobi", "sor2sma"])
 def test_k4_twin_bitwise_vs_jax(kind, maf, with_b, shape):
     """K4: sweeps.make_fused_sweep (interpret) against the port's twin on
-    the same seeded fields; odd I is (13, 11, 16)."""
+    the same seeded fields, a call of each an iteration (the port's jacobi
+    step's single form; test_torch_k4_tile.py holds its n-iteration
+    calls); odd I is (13, 11, 16)."""
     jmc, tmc = _mc(shape) if maf else (None, None)
     x, b = _fields(shape, 7 + shape[1])
     omega = 0.8 if kind == "jacobi" else 1.5
@@ -64,7 +66,7 @@ def test_k4_twin_bitwise_vs_jax(kind, maf, with_b, shape):
         kind, shape, jnp.float32, omega=omega, b_is_zero=not with_b, mc=jmc,
         interpret=True))
     tstep = tsw.make_fused_sweep(kind, shape, torch.float32, omega=omega,
-                                 b_is_zero=not with_b, mc=tmc)
+                                 b_is_zero=not with_b, mc=tmc).single
     xj, bj = jsw.pad_k2(jnp.asarray(x)), jsw.pad_k2(jnp.asarray(b))
     xt, bt = tstep.pad(torch.tensor(x)), tstep.pad(torch.tensor(b))
     for _ in range(3):
@@ -135,7 +137,8 @@ def test_k4_twins_match_unpacked_stencil():
     p = czt.Problem.from_arrays(shape, torch.float32, x, b, device="cpu")
     cm = stencil.color_masks(shape, 0, torch.float32)
     for kind in ("jacobi", "sor2sma"):
-        step = tsw.make_fused_sweep(kind, shape, torch.float32, omega=0.9)
+        step = tsw.make_fused_sweep(kind, shape, torch.float32,
+                                    omega=0.9).single
         xu, xk = p.x0, step.pad(p.x0)
         for _ in range(3):
             if kind == "jacobi":
@@ -171,7 +174,9 @@ def test_state_layout_and_builder_contract():
         tsw.unpad_k2(s, (9, 7, 12))
     for kind in tsw.KINDS:
         step = tsw.make_fused_sweep(kind, shape, omega=1.0)
-        assert step.iters_per_call == 1 and step.single is step
+        calls = tsw.JACOBI_N if kind == "jacobi" else 1
+        assert step.iters_per_call == calls and step.single.iters_per_call == 1
+        assert (step.single is step) == (calls == 1)
     with pytest.raises(ValueError, match="kind"):
         tsw.make_fused_sweep("psor", shape, omega=1.0)
     with pytest.raises(TypeError):
