@@ -16,6 +16,12 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
    - the constant-coefficient packed steps at 128^3, 124^3 and a ragged
      (37, 22, 45) (K, I, J): the single sweep with zero and seeded b, the
      pair with b, n = 3, 4, 6, offsets 0 and 1;
+   - rb_sweeps_n (K2/K3) in both forms of its plan: the one-pass tile
+     form (its n, a zero b; constant and MAF; also at forced small regions
+     and k chunks) at those shapes and the plan's edges (RBN_EDGES: K - 2
+     < 2n, J % 4 != 0, one tile and several), the row form (n = 1, 2, 3,
+     6, zero and seeded b) at the edges; ``out`` poisoned with NaN, x
+     never written;
    - the MAF packed steps (single with and without b, pair with and
      without b, n = 3 and 6) on stretched-grid coefficients, and K4 on
      its plane tiles (the one-pass red-black step, and the Jacobi step
@@ -34,16 +40,19 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
    history to rtol 1e-3, every kernel launched, and the same Error max as a
    plain-twin solve on the card (1e-5);
 5. float64 at 128^3: the f64 oracle's count +-1%, history to rtol 1e-6;
-6. float32 at 512^3: within 2% of the f64 oracle's 5781 iterations;
+6. float32 at 512^3: within 2% of the f64 oracle's 5781 iterations, the
+   chain on the one-pass tile form (its launches counted); then 20 fixed
+   sweeps of the MAF chain the dispatch builds there (the tile form's MAF
+   kernel), its field bitwise its plain twin's;
 7. the slice-2 paths at 128^3 f32, each with the counts zeroed just before
-   and read just after: sor2sma_maf (the packed MAF pair, its stopping
-   chunk replayed on the MAF single sweep; 1813 +-2%), jacobi and
+   and read just after: sor2sma_maf (the packed MAF chain at the
+   dispatch's depth, its stopping chunk replayed on the MAF single sweep;
+   1813 +-2%), jacobi and
    jacobi_maf at omega 0.8 (K4, one launch a call of JACOBI_N
    iterations; 5378 and 5377 +-2%), histories to rtol 1e-3
    (the jacobi pair's against the oracle with float64 sums of dp^2,
    tests/torch_ref_histories), Error max equal to a plain-twin solve's
-   (1e-5); then 60 fixed sweeps of the MAF window chain at n = 6 (K3-MAF),
-   which no solve dispatches;
+   (1e-5);
 8. odd I: sor2sma and sor2sma_maf at 125^3 on K4's one-pass red-black
    step (one launch an iteration), the plain twin's iteration count and
    field;
@@ -56,7 +65,10 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
    line-Jacobi, which no solver name dispatches; f64 pcr_rb at 64^3 (459
    +-1%, rtol 1e-6); odd I at 125^3, pcr_rb on K6's red-black form (the
    plain twin's count and field) and pcr_rb_maf (its MAF form);
-10. float64 stretched grids (Problem.manufactured_stretched) at 24^3 and
+10. the stretched grid (Problem.manufactured_stretched) at 128^3 f32,
+    sor2sma_maf to eps 1e-5: the MAF pair with b (K2), whose only path a
+    nonzero b is, its launches counted at the shape phase 12 times it at;
+    then float64 at 24^3 and
     48^3: sor2sma_maf (the MAF pair with b), jacobi_maf (K4-MAF with b) and
     pcr_rb_maf (K5-MAF with b, the "krylov" sign) to eps 1e-9 on the
     kernels, error ratio in the h^2 band (3.4, 5.0);
@@ -68,13 +80,16 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     and ``124 124 124 pcr_rb 10000 1.5 2 2 2`` (K9 on K-split blocks), held
     to the JAX package's jnp dist step on that mesh (1317 iterations +-2%,
     Error max 9.888023e-03 at rtol 1e-2; tools/jax_dist_counts.py);
-12. times each step and its plain twin at 128^3 and 512^3 (sor2sma on the
-    n = 6 chain, jacobi on K4, sor2sma_maf on the MAF pair, the MAF chain
-    at n = 6, pcr_rb on K5, pcr_rb_maf on K5-MAF, pcr_j_esa on K6; CUDA
-    events, distinct random starts, long-minus-short differencing), and
-    every kernel per call against its twin at 128^3 (K4 through its
-    steps: a Jacobi call runs JACOBI_N iterations), and K4's Jacobi, K5's
-    and K6's also at 512^3 (the ``_512`` keys of their rows);
+12. times each step and its plain twin at 128^3 and 512^3 (sor2sma and
+    sor2sma_maf on the dispatch's chain, the MAF chain at n = 6, jacobi on
+    K4, pcr_rb on K5, pcr_rb_maf on K5-MAF, pcr_j_esa on K6; CUDA events,
+    distinct random starts, long-minus-short differencing), and every
+    kernel per call against its twin at 128^3 (K4 through its steps: a
+    Jacobi call runs JACOBI_N iterations; K2/K3 through rb_sweeps_n's
+    launcher, printing the plan it takes, the first call of each held to
+    the twin bit for bit), and K2/K3 (both forms), K4's
+    Jacobi, K5's and K6's also at 512^3 (the ``_512`` keys of their rows;
+    the tile form's rows, whose path is 512^3, take those as their own);
 13. the distributed kernels against their twins: one block at a time at
     nonzero offsets, K7 (dist_rb_sweeps) on the (2, 2, 2) blocks of 128^3
     at n = 2, 6 and the one-iteration form n = 1 on the depth-12 ring,
@@ -177,6 +192,10 @@ RAGGED = (37, 22, 45)  # (K, I, J)
 # tile at these K): 2 and 3 inner rows, odd I (K6's red-black form), line
 # counts that are no multiple of 32, K - 2 no multiple of 4
 LINE_EDGES = ((4, 22, 45), (5, 21, 37), (39, 9, 70), (130, 14, 97))
+# rb_sweeps_n's edges (csrc/rbpack.cu): K - 2 < 2n, J % 4 != 0 (no aligned
+# copies), one tile and several, odd packed rows, a tall region
+RBN_EDGES = ((6, 10, 9), (5, 12, 14), (16, 16, 16), (40, 22, 46),
+             (24, 130, 70))
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
@@ -247,10 +266,11 @@ def main():
     def zero_counts():
         for w in wrappers.values():
             w.launches = w.maf_launches = 0
-        # K8 and K9 count their launches by variant too
+        # K2/K3, K8 and K9 count their launches by variant too
+        for w in (rb.rb_sweeps_n, k8.block_sweep, k9.block_pcr):
+            w.variant_launches = {}
         for w in (k8.block_sweep, k9.block_pcr):
             w.launches = 0
-            w.variant_launches = {}
         dist_halo.halo_exchange.launches = dist_halo.fold_partials.launches = 0
         k7.exchange_packed.launches = 0
 
@@ -259,6 +279,18 @@ def main():
         for name, w in wrappers.items():
             out[name] = w.launches - w.maf_launches
             out[name + "_maf"] = w.maf_launches
+        # K2/K3 by (form, MAF, b): the row form's chain (rb_sweeps_n, MAF
+        # rb_sweeps_n_maf_chain) and the MAF pair with b (rb_sweeps_n_maf,
+        # K2), the tile form's chain (rb_sweeps_n_tile, _maf_tile)
+        vl = rb.rb_sweeps_n.variant_launches
+        for name, form, maf, has_b in (
+                ("rb_sweeps_n", "rows", False, None),
+                ("rb_sweeps_n_maf", "rows", True, True),
+                ("rb_sweeps_n_maf_chain", "rows", True, False),
+                ("rb_sweeps_n_tile", "tile", False, None),
+                ("rb_sweeps_n_maf_tile", "tile", True, None)):
+            out[name] = sum(v for (f, m, b_), v in vl.items() if f == form
+                            and m == maf and has_b in (None, b_))
         for v in ("jacobi", "colour", "both", "interior", "shell"):
             out["block_sweep_" + v] = k8.block_sweep.variant_launches.get(v, 0)
         for v in k9_variants:
@@ -349,7 +381,7 @@ def main():
          packed(rb.make_packed_sweep, b_is_zero=True)),
         ("MAF single b", "rb_color_maf", new_shapes, True,
          packed(rb.make_packed_sweep, b_is_zero=False)),
-        ("MAF pair b=0", "rb_sweeps_n_maf", new_shapes, True,
+        ("MAF pair b=0", "rb_sweeps_n_maf_chain", new_shapes, True,
          packed(rb.make_packed_sweep2x, b_is_zero=True)),
         ("MAF pair b", "rb_sweeps_n_maf", new_shapes, True,
          packed(rb.make_packed_sweep2x, b_is_zero=False)),
@@ -405,6 +437,54 @@ def main():
                     check(e <= tol, f"field differs by {e}: {where}")
                     check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
                     n_cmp += 1
+    # both forms of rb_sweeps_n (K2/K3) against the twin: the tile form
+    # (its n, a zero b; also at forced small regions and k chunks, so that
+    # a CTA takes several work items) at the main shapes and the edges, the
+    # row form at the edges; out poisoned with NaN, x never written
+    for shape in ((128, 128, 128), (124, 124, 124), RAGGED) + RBN_EDGES:
+        for dtype in (f32, f64):
+            tol = 0.0 if dtype == f32 else 1e-14
+            tabs = {False: None, True: rb.maf_tables(stretched_mc(shape, dtype),
+                                                     shape, dtype)}
+            x = rb.pack_rb(rand(shape, dtype)).to(dev)
+            b = rb.pack_rb(rand(shape, dtype)).to(dev)
+            settings = [("tile", None, None), ("tile", 12, 3)]
+            if shape in RBN_EDGES:
+                settings.append(("rows", None, None))
+            for form, rows, kchunk in settings:
+                # the launcher's plan, forced (a test hook of rbpack)
+                rb._force_plan = dict(form=form, rows=rows, kchunk=kchunk)
+                tile = form == "tile"
+                for n in (rb.TILE_N,) if tile else (1, 2, 3, 6):
+                    for maf in (False, True):
+                        for bb in (None,) if tile else (None, b):
+                            variant = ("rb_sweeps_n" + ("_maf" if maf else "")
+                                       + ("_tile" if tile else "")
+                                       + ("_chain" if maf and not tile and bb is None
+                                          else ""))
+                            for offset in (0, 1):
+                                launch = rb.RbSweeps(n, OMEGA, offset, tabs[maf])
+                                x0 = x.clone()
+                                out = torch.full_like(x, float("nan"))
+                                rk = launch(x, bb, out)
+                                xp = x.clone()
+                                _, rp = rb.packed_sweeps_plain(xp, bb, n, OMEGA,
+                                                               offset, tabs[maf])
+                                sync()
+                                e = float((out - xp).abs().max())
+                                err[variant] = max(err.get(variant, 0.0), e)
+                                rel = float(((rk - rp).abs() / rp.abs()).max())
+                                where = (f"{variant} {form} rows={rows} kchunk="
+                                         f"{kchunk} n={n} b={bb is not None} "
+                                         f"{shape} {dtype} offset={offset}")
+                                check(launch.plan.form == form, f"plan: {where}")
+                                check(torch.equal(x, x0), f"x written: {where}")
+                                check(bool(torch.isfinite(out).all()),
+                                      f"out not written or not finite: {where}")
+                                check(e <= tol, f"field differs by {e}: {where}")
+                                check(rel <= 1e-5, f"residual rtol {rel}: {where}")
+                                n_cmp += 1
+            rb._force_plan = {}
     print(f"kernels vs plain twins: {n_cmp} comparisons passed "
           f"(f32 bitwise, f64 <= 1e-14); max |field diff| "
           + ", ".join(f"{k} {v:.3e}" for k, v in sorted(err.items())),
@@ -461,18 +541,55 @@ def main():
     stamp(6)
     prob512 = Problem.poisson_cube(512, dtype=torch.float32, device="cuda")
     sync()
+    zero_counts()
     t0 = time.perf_counter()
     res512 = solve(prob512, "sor2sma", omega=OMEGA, itr_max=20000)
     sync()
     wall512 = time.perf_counter() - t0
+    counts = read_counts()
     check(bool(torch.isfinite(res512.x).all()), "512^3: field not finite")
     check(abs(res512.iters - 5781) <= 5781 * 2 // 100,
           f"512^3: {res512.iters} iterations vs the f64 oracle's 5781")
+    # beyond the L2 the dispatch's chain runs the one-pass tile form
+    path_launches["rb_sweeps_n_tile"] = counts["rb_sweeps_n_tile"]
+    check(counts["rb_sweeps_n_tile"] > 0 and counts["rb_sweeps_n"] == 0,
+          f"512^3: the tile form was not launched ({counts['rb_sweeps_n_tile']} "
+          f"tile, {counts['rb_sweeps_n']} row launches)")
     print(f"512^3 f32: {res512.iters} iterations (f64 oracle 5781), "
-          f"res {res512.res:e}, wall {wall512:.3f} s {tag}", flush=True)
+          f"res {res512.res:e}, wall {wall512:.3f} s, launches "
+          f"{ {k: counts[k] for k in ('rb_sweeps_n_tile', 'rb_color')} } {tag}",
+          flush=True)
     # phase 14 holds the distributed 512^3 solve to this count and field
     iters512, x512 = res512.iters, res512.x
-    del prob512, res512
+    # the MAF chain the dispatch builds there (the tile form's MAF kernel):
+    # 20 fixed sweeps, counts zeroed just before; then the same sweeps of
+    # its plain twin, bit for bit
+    mc512 = Problem.poisson_cube(512, device=dev, maf=True).mc
+    chain512 = get_fused_step("sor2sma", prob512.grid, OMEGA, mc=mc512,
+                              b_is_zero=True)
+    x_chain = chain512.pad(prob512.x0)
+    sync()
+    zero_counts()
+    x_chain = fixed_sweeps(chain512, x_chain, None, 20)
+    sync()
+    path_launches["rb_sweeps_n_maf_tile"] = read_counts()["rb_sweeps_n_maf_tile"]
+    check(path_launches["rb_sweeps_n_maf_tile"] == 20 // chain512.iters_per_call,
+          f"512^3 MAF chain: {path_launches['rb_sweeps_n_maf_tile']} tile launches")
+    check(bool(torch.isfinite(x_chain).all()), "512^3 MAF chain: not finite")
+    twin512 = get_fused_step("sor2sma", prob512.grid, OMEGA, mc=mc512,
+                             b_is_zero=True, plain=True)
+    check(twin512.iters_per_call == chain512.iters_per_call,
+          "512^3 MAF chain: the twin's depth differs")
+    x_twin = fixed_sweeps(twin512, twin512.pad(prob512.x0), None, 20)
+    sync()
+    check(torch.equal(x_chain, x_twin),
+          f"512^3 MAF chain: field differs from the plain twin's by "
+          f"{float((x_chain - x_twin).abs().max())}")
+    print(f"512^3 f32 MAF chain (dispatch): 20 fixed sweeps in "
+          f"{path_launches['rb_sweeps_n_maf_tile']} tile launches of n="
+          f"{chain512.iters_per_call}, field bitwise the plain twin's {tag}",
+          flush=True)
+    del prob512, res512, chain512, twin512, x_chain, x_twin, mc512
 
     # ---- 7. the slice-2 paths at 128^3 f32 -------------------------------------
     stamp(7)
@@ -510,7 +627,7 @@ def main():
     # oracle sums per colour, to the f32 oracle's.
     for name, omega, oracle, variants, curve in (
         ("sor2sma_maf", OMEGA, "f32_sor2sma_maf_128_w1.5.txt",
-         ("rb_sweeps_n_maf", "rb_color_maf"), None),
+         ("rb_sweeps_n_maf_chain", "rb_color_maf"), None),
         ("jacobi", OMEGA_J, "f32_jacobi_128_w0.8.txt", ("k4_jacobi",),
          "f32_jacobi_128_w0.8_f64sum.txt"),
         ("jacobi_maf", OMEGA_J, "f32_jacobi_maf_128_w0.8.txt",
@@ -543,23 +660,6 @@ def main():
               f"rtol {worst:.2e} (vs {curve or oracle}), "
               f"wall {wall:.3f} s, launches {cnt}, Error max {ek:e} at {lk} "
               f"(plain twin: {ep:e} at {lp}) {tag}", flush=True)
-
-    # The MAF window chain (K3-MAF) is not on the dispatch, as in the JAX
-    # package: drive its builder through fixed sweeps, counts zeroed first.
-    p = Problem.poisson_cube(128, dtype=torch.float32, device="cuda", maf=True)
-    chain = rb.make_packed_sweepnx(p.grid.shape_kij, f32, omega=OMEGA, n=6,
-                                   mc=p.mc)
-    sync()
-    zero_counts()
-    xc = chain.unpad(fixed_sweeps(chain, chain.pad(p.x0), None, 60))
-    sync()
-    path_launches["rb_sweeps_n_maf_chain"] = read_counts()["rb_sweeps_n_maf"]
-    check(path_launches["rb_sweeps_n_maf_chain"] == 10,
-          f"MAF chain: {path_launches['rb_sweeps_n_maf_chain']} launches")
-    check(bool(torch.isfinite(xc).all()), "MAF chain: field not finite")
-    print(f"MAF chain n=6 128^3 f32: 60 fixed sweeps in "
-          f"{path_launches['rb_sweeps_n_maf_chain']} launches {tag}", flush=True)
-    del p, chain, xc
 
     # ---- 8. odd I on K4 ----------------------------------------------------------
     stamp(8)
@@ -658,6 +758,24 @@ def main():
 
     # ---- 10. stretched grids, float64 -----------------------------------------
     stamp(10)
+    # K2 (the MAF pair with a streamed b) runs only where b is nonzero, as
+    # in the stretched manufactured problem: its launches at the shape and
+    # dtype phase 12 times it at, 128^3 f32
+    p, _ = Problem.manufactured_stretched(128, dtype=f32, family="relax",
+                                          device=dev)
+    zero_counts()
+    r = solve(p, "sor2sma_maf", omega=OMEGA, itr_max=20000)
+    sync()
+    counts = read_counts()
+    path_launches["rb_sweeps_n_maf"] = counts["rb_sweeps_n_maf"]
+    check(counts["rb_sweeps_n_maf"] > 0 and counts["rb_sweeps_n_maf_chain"] == 0,
+          f"stretched sor2sma_maf 128^3: the pair with b was not launched "
+          f"({counts['rb_sweeps_n_maf']}; chain {counts['rb_sweeps_n_maf_chain']})")
+    check(bool(torch.isfinite(r.x).all()) and r.res < float(r.history[0]),
+          f"stretched sor2sma_maf 128^3: res {r.res}, first {r.history[0]}")
+    print(f"stretched f32 sor2sma_maf 128^3 (K2): {r.iters} iterations, res "
+          f"{r.res:e}, launches {counts['rb_sweeps_n_maf']} {tag}", flush=True)
+    del p, r
     # the line solvers solve L x = b, the point sweeps take rp + b: the
     # stretched problem's "krylov" sign for pcr_rb_maf
     for name, omega, variant, family in (
@@ -786,7 +904,7 @@ def main():
          {128: ((60, 600), (6, 36, 3)), 512: ((12, 72), (6, 18, 3))}),
         ("jacobi (K4)", "jacobi", False, None,
          {128: ((60, 600), (6, 36, 3)), 512: ((12, 72), (4, 12, 1))}),
-        ("sor2sma_maf (MAF pair)", "sor2sma", True, None,
+        ("sor2sma_maf (dispatch)", "sor2sma", True, None,
          {128: ((60, 600), (4, 16, 3)), 512: ((12, 72), (2, 6, 1))}),
         ("MAF chain n=6 (K3-MAF)", "sor2sma", True, 6,
          {128: ((60, 600), (6, 18, 3)), 512: ((12, 72), (6, 12, 1))}),
@@ -835,6 +953,39 @@ def main():
     out = torch.empty_like(xu)  # line-Jacobi's second field
     mc128 = Problem.poisson_cube(128, device=dev, maf=True).mc
 
+    def rb_calls(name, x, b, n, tab, form=None):
+        """(kernel, twin) calls of rb_sweeps_n's launcher (the plan's form,
+        or ``form``) on x, each handing the launcher the field its last
+        call wrote, as the steps do; the twin updates its own copy.  The
+        first call of each is held to the other here (the field bit for
+        bit, r2 to rtol 1e-5)."""
+        rb._force_plan = {} if form is None else {"form": form}
+        launch = rb.RbSweeps(n, OMEGA, 0, tab)
+        held, twin = [x.clone(), torch.empty_like(x)], [x.clone()]
+
+        def run():
+            r2 = launch(held[0], b, held[1])
+            held.reverse()
+            return r2
+
+        def run_twin():
+            return rb.packed_sweeps_plain(twin[0], b, n, OMEGA, tab=tab)[1]
+        rk, rp = run(), run_twin()
+        sync()
+        rb._force_plan = {}
+        e = float((held[0] - twin[0]).abs().max())
+        rel = float(((rk - rp).abs() / rp.abs()).max())
+        where = f"{name} {tuple(x.shape)} n={n} {launch.plan.form}"
+        check(launch.plan.form == ("tile" if name.endswith("_tile") else "rows"),
+              f"timed call: the plan's form: {where}")
+        check(e == 0.0, f"timed call: field differs by {e}: {where}")
+        check(rel <= 1e-5, f"timed call: residual rtol {rel}: {where}")
+        err[name] = max(err.get(name, 0.0), e)
+        print(f"plan {tuple(x.shape)} n={n} maf={tab is not None} b="
+              f"{b is not None}: {launch.plan.form}, grid {launch.grid} CTAs, "
+              f"{launch.plan} {tag}", flush=True)
+        return run, run_twin
+
     def k4_calls(kind, x, mc):
         """(kernel, twin) calls of K4's step on x's shape, each handing the
         step the field its last call returned."""
@@ -856,14 +1007,13 @@ def main():
                      lambda: rb.rb_color_plain(xs, None, 0, OMEGA)),
         "rb_color_maf": (lambda: rb.rb_color(xs, None, 0, OMEGA, tab=tab),
                          lambda: rb.rb_color_plain(xs, None, 0, OMEGA, tab=tab)),
-        "rb_sweeps_n": (lambda: rb.rb_sweeps_n(xs, None, 6, OMEGA),
-                        lambda: rb.packed_sweeps_plain(xs, None, 6, OMEGA)),
-        "rb_sweeps_n_maf": (
-            lambda: rb.rb_sweeps_n(xs, bs, 2, OMEGA, tab=tab),
-            lambda: rb.packed_sweeps_plain(xs, bs, 2, OMEGA, tab=tab)),
-        "rb_sweeps_n_maf_chain": (
-            lambda: rb.rb_sweeps_n(xs, None, 6, OMEGA, tab=tab),
-            lambda: rb.packed_sweeps_plain(xs, None, 6, OMEGA, tab=tab)),
+        # K3 at the dispatch's depth (the row form at 128^3), K2 (the MAF
+        # pair with b), the MAF chain
+        "rb_sweeps_n": rb_calls("rb_sweeps_n", xs, None, rb.chain_depth(sh),
+                                None),
+        "rb_sweeps_n_maf": rb_calls("rb_sweeps_n_maf", xs, bs, 2, tab),
+        "rb_sweeps_n_maf_chain": rb_calls("rb_sweeps_n_maf_chain", xs, None,
+                                          rb.chain_depth(sh, f32, True), tab),
         # K4 through its steps, as the paths call it: a Jacobi call runs
         # JACOBI_N iterations, a red-black call one, into the step's buffers
         "k4_jacobi": k4_calls("jacobi", xu, None),
@@ -905,7 +1055,22 @@ def main():
     out5 = torch.empty_like(xu5)
     mc512 = Problem.poisson_cube(512, device=dev, maf=True).mc
     tab5 = rb.maf_tables(mc512, sh5, f32)
+    xs5 = rb.pack_rb(torch.rand(sh5, device=dev, generator=dgen) * 2 - 1)
+    bs5 = rb.pack_rb(torch.rand(sh5, device=dev, generator=dgen) * 2 - 1)
+    n5, nm5 = rb.chain_depth(sh5), rb.chain_depth(sh5, f32, True)
     calls512 = {
+        # K3: the row form at the 128^3 depth and the tile form at the
+        # dispatch's (the form the plan takes at 512^3); K2 (the MAF pair
+        # with b); the MAF chain in both forms
+        "rb_sweeps_n": rb_calls("rb_sweeps_n", xs5, None, rb.chain_depth(sh),
+                                None, "rows"),
+        "rb_sweeps_n_tile": rb_calls("rb_sweeps_n_tile", xs5, None, n5, None),
+        "rb_sweeps_n_maf": rb_calls("rb_sweeps_n_maf", xs5, bs5, 2, tab5),
+        "rb_sweeps_n_maf_chain": rb_calls("rb_sweeps_n_maf_chain", xs5, None,
+                                          rb.chain_depth(sh, f32, True), tab5,
+                                          "rows"),
+        "rb_sweeps_n_maf_tile": rb_calls("rb_sweeps_n_maf_tile", xs5, None, nm5,
+                                         tab5),
         "k4_jacobi": k4_calls("jacobi", xu5, None),
         "k4_jacobi_maf": k4_calls("jacobi", xu5, mc512),
         "rbl": (lambda: k5.rbl(xl5, None, OMEGA),
@@ -934,7 +1099,7 @@ def main():
               f"plain twin {per_call_512[name][1]:.4f} ms {tag}", flush=True)
     check(all(bool(torch.isfinite(t).all()) for t in (xl5, xu5, out5)),
           "512^3 line timing fields not finite")
-    del xl5, xu5, out5, tab5, calls512, mc512
+    del xl5, xu5, out5, tab5, calls512, mc512, xs5, bs5
 
     # the least work of each call above: (bytes that must move, each input
     # read once and each output written once; operations), float32 at
@@ -948,9 +1113,10 @@ def main():
     work = {
         "rb_color": (1.5 * fb, 11 * inner / 2),
         "rb_color_maf": (1.5 * fb, 20 * inner / 2),
-        "rb_sweeps_n": (2 * fb, 6 * 11 * inner),
+        "rb_sweeps_n": (2 * fb, rb.chain_depth(sh) * 11 * inner),
         "rb_sweeps_n_maf": (3 * fb, 2 * 21 * inner),
-        "rb_sweeps_n_maf_chain": (2 * fb, 6 * 20 * inner),
+        "rb_sweeps_n_maf_chain": (2 * fb,
+                                  rb.chain_depth(sh, f32, True) * 20 * inner),
         # a K4 Jacobi call runs JACOBI_N iterations, reading x and writing
         # out once; a red-black call one iteration, both colours
         "k4_jacobi": (2 * fb, k4.JACOBI_N * 11 * inner),
@@ -965,6 +1131,22 @@ def main():
         "line_rb_maf": (2 * fb, 24 * inner),
     }
     del xs, bs, xu, xl, out
+    # the least work of the 512^3 calls of K2/K3 (the others scale the
+    # 128^3 row's operations, over two fields): each at its own depth; the
+    # tile form's rows, whose path runs at 512^3 only, take these as their
+    # own (ms, bound)
+    fb5, inner5 = 4 * 512**3, 510**3
+    d128, dm128 = rb.chain_depth(sh), rb.chain_depth(sh, f32, True)
+    work512 = {
+        "rb_sweeps_n": (2 * fb5, d128 * 11 * inner5),
+        "rb_sweeps_n_tile": (2 * fb5, n5 * 11 * inner5),
+        "rb_sweeps_n_maf": (3 * fb5, 2 * 21 * inner5),
+        "rb_sweeps_n_maf_chain": (2 * fb5, dm128 * 20 * inner5),
+        "rb_sweeps_n_maf_tile": (2 * fb5, nm5 * 20 * inner5),
+    }
+    for name in ("rb_sweeps_n_tile", "rb_sweeps_n_maf_tile"):
+        work[name] = work512[name]
+        per_call[name] = per_call_512[name]
 
     # ---- 13. the distributed kernels vs their twins ----------------------------
     stamp(13)
@@ -1809,6 +1991,11 @@ def main():
                             "cubez_tpu/pallas_kernels/sweeps2x.py:552"),
         "rb_sweeps_n_maf_chain": (rbpack_cu,
                                   "cubez_tpu/pallas_kernels/sweeps2x.py:480"),
+        # the one-pass tile form of K3 (and of K2's zero-b pair), the
+        # dispatch's chain beyond the L2 (512^3, phase 6)
+        "rb_sweeps_n_tile": (rbpack_cu, "cubez_tpu/pallas_kernels/sweeps2x.py:480"),
+        "rb_sweeps_n_maf_tile": (rbpack_cu,
+                                 "cubez_tpu/pallas_kernels/sweeps2x.py:480"),
         "k4_jacobi": (sweeps_cu, k4_site),
         "k4_jacobi_maf": (sweeps_cu, k4_site),
         "k4_rb_color": (sweeps_cu, k4_site),
@@ -1843,7 +2030,6 @@ def main():
     for name in meta:
         check(path_launches.get(name, 0) > 0, f"{name}: no path launched it")
     kernels = []
-    fb5, inner5 = 4 * 512**3, 510**3
     for name, (src, site) in meta.items():
         bms, by = bound(*work[name])
         # no single PyTorch call computes a red-black colour, a Jacobi sweep,
@@ -1856,12 +2042,15 @@ def main():
              "launches": path_launches[name], "max_abs_err": err[name],
              "ms": per_call[name][0], "plain_ms": per_call[name][1],
              "bound_ms": bms, "bound_by": by, "library_ms": per_call[name][2] if len(per_call[name]) > 2 else None})
+        if name in work512:
+            kernels[-1]["shape"] = [512] * 3 if name.endswith("_tile") else [128] * 3
         if name in per_call_512:
-            # the same least work at 512^3: 2 fields, the row's operations
-            flops = work[name][1] / inner * inner5
+            # the same least work at 512^3: 2 fields (K2: 3), the row's
+            # operations
+            w5 = work512.get(name, (2 * fb5, work[name][1] / inner * inner5))
             kernels[-1].update({"ms_512": per_call_512[name][0],
                                 "plain_ms_512": per_call_512[name][1],
-                                "bound_ms_512": bound(2 * fb5, flops)[0]})
+                                "bound_ms_512": bound(*w5)[0]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -104,6 +104,38 @@ __device__ __forceinline__ T packed_dp(const T* __restrict__ o, const T* b,
   }
 }
 
+// An asynchronous copy of one value from global to shared memory
+// (cp.async, sm_80+), zero-filled where ``valid`` is false (src is then
+// not read); commit_group closes the copies issued so far into a group,
+// wait_all waits for every group of this thread.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4- or 8-byte values");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 4 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 8 : 0));
+}
+
+// 16 bytes, both addresses 16-byte aligned; zero-filled where ``valid``
+// is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most ``kPending`` of this thread's groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // Sum over a block of kThreads threads (a multiple of 32) in a fixed
 // order; the result is valid in thread 0.  Every thread must call it.
 template <int kThreads, typename A>

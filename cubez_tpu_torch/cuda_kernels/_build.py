@@ -76,9 +76,10 @@ def _declare(lib):
             # rbpack.cu
             ("rb_color", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64, u32,
                           i32, vp]),
-            ("rb_sweeps_max_blocks", [i32, i32, ctypes.POINTER(i32)]),
-            ("rb_sweeps_n", [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, f64,
-                             u32, i32, i32, vp]),
+            # (form, maf, has_b, smem, device, out); (ptrs, iargs, omega,
+            # stream)
+            ("rbn_max_blocks", [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]),
+            ("rbn_sweeps", [pvp, pi32, f64, vp]),
             # sweeps.cu (K4: kind, n, maf, aligned, smem, device, out)
             ("k4_max_blocks", [i32, i32, i32, i32, i32, i32, ctypes.POINTER(i32)]),
             ("k4_sweep", [pvp, pi32, f64, vp]),

@@ -11,11 +11,15 @@ true bounds and never read outside the array.
 
 Two kernels carry every builder (csrc/rbpack.cu):
 
-* ``rb_color``: one colour of one iteration (K1, the single packed sweep,
-  is two launches: red, then black);
+* ``rb_color``: one colour of one iteration, in place (K1, the single
+  packed sweep, is two launches: red, then black);
 * ``rb_sweeps_n``: n full iterations in one cooperative launch, with an
   optional right-hand side (K2, the pair, is n = 2 with b; K3, the window
-  chain, is n >= 3 without).
+  chain, is n >= 3 without), OUT OF PLACE: it reads x and writes every
+  point of ``out``.  ``tile_plan`` picks its form from the field's size:
+  'tile', one pass over the field for n = ``TILE_N`` iterations with a
+  zero b on shared-memory tiles, where x and out overflow the L2, else
+  'rows', the 2n colour passes with grid-wide syncs between them.
 
 Both take the MAF (variable-coefficient) update too: ``maf_tables`` gives
 the per-axis weight vectors, which the kernels index by the physical i of
@@ -24,8 +28,10 @@ each packed point (the fold only mixes the I tables).
 Each wrapper launches its kernel for a CUDA tensor and raises on anything it
 cannot take; for a CPU tensor it runs the plain twin, ``rb_color_plain`` /
 ``packed_sweeps_plain``, which computes the same per-point arithmetic
-(bitwise equal in float32; see ``_fma`` and the contracts below).  Steps
-update the packed state in place and return it.
+(bitwise equal in float32; see ``_fma`` and the contracts below).  The
+single sweep updates the packed state in place; the n-iteration steps own
+two states and alternate between them, so the state they are handed (the
+start, or the driver's snapshot) is only read.
 
 Arithmetic contracts (those of the JAX package's interpreted kernels, where
 XLA on the CPU contracts some products into fused multiply-adds):
@@ -43,6 +49,7 @@ Then ``centre += dp``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -326,46 +333,308 @@ def rb_color(xp, bp, colour: int, omega: float, offset: int = 0, tab=None):
 
 rb_color.launches = rb_color.maf_launches = 0
 
+# --------------------------------------------------------------------------
+# the n-iteration launch: its plan and launcher
+# --------------------------------------------------------------------------
+
+FORMS = ("rows", "tile")
+# csrc/rbpack.cu: cells of a region row in shared memory, region rows at
+# most, planes of x in flight, iterations a launch at most, threads of a
+# CTA of each form, the n the tile kernel is built for (kTileN)
+ROW = 64
+REGION_ROWS = 32
+AHEAD = 2
+MAX_N = 9
+THREADS = 256
+TILE_THREADS = 512
+TILE_N = 2
+# the bytes of x and out together past which the zero-b chain's tile form
+# beats the rows at their depths, by (MAF, itemsize); None: never
+# (tools/prof_rbpack.py --depths, H100 80GB HBM3 at 700 W; PERF.md).
+# Constant coefficients switch at the H100's 50 MB L2: float32 rows ahead
+# at 160^3, tiles from 192^3; float64 rows at 128^3, tiles from 160^3.
+# MAF float32: rows up to 384^3 (453 MB, even there), tiles from 448^3
+# (719 MB).  MAF float64: the tiles lost at every size (3.4x at 320^3).
+L2_BYTES = 50 * 2**20
+TILE_BYTES = {(False, 4): L2_BYTES, (False, 8): L2_BYTES,
+              (True, 4): 512 * 2**20, (True, 8): None}
+# iterations a call of the zero-b chain (tools/prof_rbpack.py --depths, H100
+# 80GB HBM3 at 700 W): the row form gains a little with n (128^3: 15.4 us an
+# iteration at n = 2, 13.1 at n = 6), and the tile form runs n = TILE_N
+ROWS_CHAIN_N = 6
+# a test and profiling hook, never set by the solvers: overrides of
+# tile_plan's choices for every plan made while it holds them ("form";
+# "rows", fewer region rows; "kchunk", planes a chunk)
+_force_plan: dict = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class RbPlan:
+    """An ``rb_sweeps_n`` launch on the packed state of physical ``shape``
+    (K, I, J).  'rows': the 2n colour passes over the whole field.
+    'tile': ``tiles_i`` x ``tiles_j`` tiles of ``ti`` packed rows x ``tj``
+    columns (the last of each ragged), times ``nkc`` chunks of ``kchunk``
+    planes (the last ragged); x is loaded with ``halo_rows`` packed rows,
+    ``halo_cols`` columns and ``halo_planes`` planes around a work item
+    (the cone of the 2n half-steps: a half-step reaches one physical cell,
+    half a packed row); ``smem`` bytes of shared memory a CTA, ``per_sm``
+    CTAs an SM at most by shared memory and threads."""
+
+    form: str
+    shape: tuple
+    n: int
+    ti: int = 0
+    tj: int = 0
+    tiles_i: int = 0
+    tiles_j: int = 0
+    kchunk: int = 0
+    nkc: int = 0
+    smem: int = 0
+    per_sm: int = 0
+
+    @property
+    def halo_rows(self) -> int:
+        return self.n + 1
+
+    @property
+    def halo_cols(self) -> int:
+        return 2 * self.n
+
+    halo_planes = halo_cols
+
+    @property
+    def nwork(self) -> int:
+        return self.tiles_i * self.tiles_j * self.nkc
+
+    def items(self):
+        """Each work item's owned box of a colour plane, ((k_lo, k_hi),
+        (r_lo, r_hi), (j_lo, j_hi)) in packed rows, in the kernel's
+        order."""
+        K, I, J = self.shape
+        for w in range(self.nwork):
+            kc, t = divmod(w, self.tiles_i * self.tiles_j)
+            ty, tx = divmod(t, self.tiles_j)
+            yield ((kc * self.kchunk, min((kc + 1) * self.kchunk, K)),
+                   (ty * self.ti, min((ty + 1) * self.ti, I // 2)),
+                   (tx * self.tj, min((tx + 1) * self.tj, J)))
+
+    def region(self, item):
+        """The box of x a work item loads: its owned box with the halos,
+        cut to the array."""
+        K, I, J = self.shape
+        (k0, k1), (r0, r1), (j0, j1) = item
+        hp, hr, hc = self.halo_planes, self.halo_rows, self.halo_cols
+        return ((max(k0 - hp, 0), min(k1 + hp, K)),
+                (max(r0 - hr, 0), min(r1 + hr, I // 2)),
+                (max(j0 - hc, 0), min(j1 + hc, J)))
+
+
+def tile_plan(shape, n: int, itemsize: int = 4, has_b: bool = False,
+              maf: bool = False, *, slots: int | None = None,
+              sms: int = 132) -> RbPlan:
+    """The plan of an ``rb_sweeps_n`` launch of n iterations on the packed
+    state of physical ``shape``: 'tile' where the tile kernel runs the
+    launch (n = ``TILE_N``, a zero right-hand side) and x and out together
+    pass ``TILE_BYTES`` for ``maf`` and ``itemsize``, else 'rows'.
+    Measured on an H100 80GB HBM3 at 700 W (tools/prof_rbpack.py
+    --depths): at 512^3 the tiles take 412 us an iteration against the
+    rows' 669 (MAF 882 against 1082), at 128^3 18.5 against 12.9; with a
+    streamed b the tiles lost (MAF 1422 against 1056 at 512^3) and are not
+    built.  A tile's region is at most ``REGION_ROWS`` rows of ``ROW``
+    cells, as many rows as the planes leave in a CTA's shared memory; its
+    k chunks are chosen by the launch's makespan for ``slots`` co-resident
+    CTAs (by default an estimate for ``sms`` SMs).  ``_force_plan``
+    overrides the form, the region rows and the chunk.  Raises ValueError
+    where a forced tile is not built or does not fit."""
+    from . import sweeps
+
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"rb_sweeps_n runs n in 1..{MAX_N}, not {n}")
+    K, I, J = shape
+    form, rows, kchunk = (_force_plan.get(k)
+                          for k in ("form", "rows", "kchunk"))
+    if form is None:
+        most = TILE_BYTES[bool(maf), itemsize]
+        tiles = n == TILE_N and not has_b and most is not None
+        form = "tile" if tiles and 2 * K * I * J * itemsize > most else "rows"
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, not {form!r}")
+    if form == "rows":
+        return RbPlan("rows", tuple(shape), n)
+    if n != TILE_N or has_b:
+        raise ValueError(f"the tile kernel runs n = {TILE_N} with a zero "
+                         f"right-hand side, not n = {n}"
+                         + (" with b" if has_b else ""))
+    hr, hc = n + 1, 2 * n
+    # x's two colours (three planes in use, AHEAD in flight), two planes
+    # of each level but the last; a plane is the region's rows and a row
+    # of padding on each side, and two rows more close the last plane (a
+    # cell off the region reads up to a row and a few cells past its own)
+    planes = 2 * (3 + AHEAD) + 2 * (2 * n - 1)
+    # a region row also holds up to 16 / itemsize - 1 cells before its
+    # first, so that it copies in aligned 16-byte pieces
+    tj_most = ROW - 2 * hc - (16 // itemsize - 1)
+    rows_most = min(REGION_ROWS, rows or REGION_ROWS,
+                    (sweeps.SMEM_CTA // (ROW * itemsize) - 2) // planes - 2)
+    if rows_most - 2 * hr < 1:
+        raise ValueError(f"rb_sweeps_n n={n}: no tile fits ({rows_most} "
+                         f"region rows, a halo of {hr})")
+    ti = sweeps._even(I // 2, rows_most - 2 * hr)
+    tj = sweeps._even(J, tj_most)
+    smem = (planes * (ti + 2 * hr + 2) + 2) * ROW * itemsize
+    per_sm = max(1, min(sweeps.THREADS_SM // TILE_THREADS,
+                        sweeps.SMEM_SM // (smem + 1024)))
+    tiles_i, tiles_j = -(-(I // 2) // ti), -(-J // tj)
+    if kchunk is None:
+        slots = sms * per_sm if slots is None else slots
+        # a chunk's levels run 2n planes past each end of it
+        kchunk = sweeps._k_chunks(K, tiles_i * tiles_j, slots, 4 * n)
+    kchunk = min(kchunk, K)
+    return RbPlan("tile", tuple(shape), n, ti, tj, tiles_i, tiles_j, kchunk,
+                  -(-K // kchunk), smem, per_sm)
+
+
+def chain_depth(shape, dtype=torch.float32, maf: bool = False) -> int:
+    """Iterations a call of the zero-b chain that the dispatch builds (MAF
+    with ``maf``): ``TILE_N`` where ``tile_plan`` takes the tile form at
+    that n, ``ROWS_CHAIN_N`` where the row form runs (constant
+    coefficients and MAF alike: at 128^3 the MAF chain at n = 6 took 17.6
+    us an iteration, the MAF pair 19.5)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = tile_plan(shape, TILE_N, itemsize, maf=maf)
+    return TILE_N if plan.form == "tile" else ROWS_CHAIN_N
+
+
 _MAX_BLOCKS: dict = {}
 
 
-def rb_sweeps_n(xp, bp, n: int, omega: float, offset: int = 0, tab=None):
-    """Launch ``rb_sweeps_kernel``: n full iterations in one cooperative
-    launch, in place; ``tab`` selects the MAF form.  Returns the (n,)
-    float64 per-iteration sums of dp^2 (on the device).  A CPU tensor runs
-    the plain twin."""
-    if not xp.is_cuda:
-        return packed_sweeps_plain(xp, bp, n, omega, offset, tab)[1]
-    _check(xp, bp, tab)
-    lib = _build.load()
-    sfx = _SUFFIX[xp.dtype]
-    dev = xp.device.index
-    cells = _cells(xp)
-    if not cells:
-        return torch.zeros(n, dtype=torch.float64, device=xp.device)
-    maf = int(tab is not None)
-    key = (sfx, maf, dev)
+def _max_blocks(fi, maf, has_b, smem, x) -> int:
+    key = (fi, maf, has_b, smem, x.dtype, x.get_device())
     if key not in _MAX_BLOCKS:
-        out = ctypes.c_int(0)
-        _build.check(
-            getattr(lib, f"cz_rb_sweeps_max_blocks_{sfx}")(maf, dev, out),
-            "rb_sweeps_n occupancy",
-        )
-        _MAX_BLOCKS[key] = out.value
-    nblocks = min(_MAX_BLOCKS[key], -(-cells // lib.cz_threads_per_block()))
-    partials = torch.empty(n * 2 * nblocks, dtype=xp.dtype, device=xp.device)
-    r2 = torch.empty(n, dtype=torch.float64, device=xp.device)
-    _, K, I2, J = xp.shape
-    rc = getattr(lib, f"cz_rb_sweeps_n_{sfx}")(
-        xp.data_ptr(), ptr(bp), ptr(tab), partials.data_ptr(), r2.data_ptr(),
-        K, I2, J, n, offset, omega, cells, nblocks, dev, stream(xp),
-    )
-    _build.check(rc, "rb_sweeps_n")
-    count(rb_sweeps_n, tab)
+        cnt = ctypes.c_int(0)
+        rc = getattr(_build.load(), f"cz_rbn_max_blocks_{_SUFFIX[x.dtype]}")(
+            fi, int(maf), int(has_b), smem, x.get_device(), cnt)
+        _build.check(rc, "rb_sweeps_n occupancy")
+        if cnt.value < 1:
+            raise RuntimeError(f"rb_sweeps_n form {fi}: no CTA fits an SM")
+        _MAX_BLOCKS[key] = cnt.value
+    return _MAX_BLOCKS[key]
+
+
+def out_for(x, out):
+    """``out`` checked as the second field of an out-of-place update of x
+    (a new one for None)."""
+    if out is None:
+        return torch.empty_like(x)
+    if (out.shape != x.shape or out.dtype != x.dtype or out.device != x.device
+            or not out.is_contiguous() or out.data_ptr() == x.data_ptr()):
+        raise ValueError("out must match x in shape, dtype, device and layout, "
+                         "and must not be x (the update is out of place)")
+    return out
+
+
+class RbSweeps:
+    """``rb_sweeps_n``'s launcher for one step: n iterations at colour
+    ``offset``, ``tab`` (``maf_tables``) selecting MAF; the plan is
+    ``tile_plan``'s, made at the first call.  ``__call__(x, b, out)``
+    reads x and writes every point of ``out`` (never x); returns the (n,)
+    float64 r2 in a buffer of the launcher's that holds until its next
+    call.  The plan, the partials and the ctypes arguments (for each set of
+    field pointers) are built once; ``plan`` and ``grid`` tell what it
+    launches.  It counts its launches on ``rb_sweeps_n`` (and by form, MAF
+    and b in ``rb_sweeps_n.variant_launches``)."""
+
+    def __init__(self, n: int, omega: float, offset: int = 0, tab=None):
+        if not 1 <= n <= MAX_N:
+            raise ValueError(f"rb_sweeps_n runs n in 1..{MAX_N}, not {n}")
+        self.n, self.omega, self.offset, self.tab = n, omega, offset, tab
+        self._key = None  # (shape, dtype, device, b given) of the buffers
+        self._args = {}
+        self.plan = self.grid = None
+
+    def _setup(self, x, b):
+        from .dist_halo import int_array
+
+        _, K, I2, J = x.shape
+        shape = (K, 2 * I2, J)
+        dev = x.get_device()
+        maf = self.tab is not None
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        kw = dict(itemsize=x.element_size(), has_b=b is not None, maf=maf)
+        plan = tile_plan(shape, self.n, sms=sms, **kw)
+        fi = FORMS.index(plan.form)
+        slots = _max_blocks(fi, maf, b is not None, plan.smem, x)
+        if plan.form == "tile":
+            # as many k chunks as the co-resident CTAs take in one round
+            plan = tile_plan(shape, self.n, slots=slots, **kw)
+            grid = min(plan.nwork, slots)
+        else:
+            grid = min(slots, -(-K * I2 // (THREADS // 32)))
+        per = 2 if plan.form == "rows" else 1
+        self._partials = torch.empty(per * self.n * grid, dtype=x.dtype,
+                                     device=x.device)
+        self._r2 = torch.empty(self.n, dtype=torch.float64, device=x.device)
+        self._ints = int_array((fi, self.n, K, I2, J,
+                                self.offset, plan.ti, plan.tj, plan.tiles_i,
+                                plan.tiles_j, plan.kchunk, plan.nwork, grid,
+                                plan.smem, dev))
+        self._fn = getattr(_build.load(), f"cz_rbn_sweeps_{_SUFFIX[x.dtype]}")
+        self._key = (x.shape, x.dtype, x.device, b is not None)
+        self._args = {}
+        self.plan, self.grid = plan, grid
+
+    def __call__(self, x, b, out):
+        from .dist_halo import current_stream, pointer_array
+
+        key = (x.data_ptr(), ptr(b), out.data_ptr())
+        args = self._args.get(key)
+        if args is None or (x.shape, x.dtype, x.device, b is not None) != self._key:
+            _check(x, b, self.tab)
+            out_for(x, out)
+            if (x.shape, x.dtype, x.device, b is not None) != self._key:
+                self._setup(x, b)
+            if len(self._args) >= 8:
+                self._args.clear()
+            args = self._args[key] = pointer_array(
+                (x.data_ptr(), ptr(b), ptr(self.tab), out.data_ptr(),
+                 self._partials.data_ptr(), self._r2.data_ptr()))
+        elif not x.is_contiguous():
+            raise ValueError("need a contiguous (2, K, I/2, J) state")
+        _build.check(self._fn(args, self._ints, self.omega,
+                              current_stream(x.get_device())),
+                     f"rb_sweeps_n {self.plan.form}")
+        count(rb_sweeps_n, self.tab)
+        key = (self.plan.form, self.tab is not None, b is not None)
+        rb_sweeps_n.variant_launches[key] = rb_sweeps_n.variant_launches.get(key, 0) + 1
+        return self._r2
+
+
+def rb_sweeps_n(xp, bp, n: int, omega: float, offset: int = 0, tab=None,
+                out=None):
+    """Launch ``rb_sweeps_n``'s kernel (the form ``tile_plan`` picks): n
+    full iterations in one cooperative launch from ``xp`` into ``out``
+    (never ``xp``, which is only read); with ``out`` None the result is
+    copied back into ``xp``.  ``tab`` selects the MAF form.  Returns the
+    (n,) float64 per-iteration sums of dp^2 (on the device).  A CPU tensor
+    runs the plain twin (in ``out``, or in place)."""
+    if not xp.is_cuda:
+        dst = xp if out is None else out_for(xp, out).copy_(xp)
+        return packed_sweeps_plain(dst, bp, n, omega, offset, tab)[1]
+    _check(xp, bp, tab)
+    dst = out_for(xp, out)
+    if not _cells(xp):
+        dst.copy_(xp)
+        r2 = torch.zeros(n, dtype=torch.float64, device=xp.device)
+    else:
+        r2 = RbSweeps(n, omega, offset, tab)(xp, bp, dst)
+    if out is None:
+        xp.copy_(dst)
     return r2
 
 
 rb_sweeps_n.launches = rb_sweeps_n.maf_launches = 0
+# launches by (form, MAF, a right-hand side)
+rb_sweeps_n.variant_launches = {}
 
 
 # --------------------------------------------------------------------------
@@ -413,18 +682,28 @@ def make_packed_sweep(shape, dtype=torch.float32, *, omega: float,
 
 def _make_n(shape, dtype, omega, n, offset, b_is_zero, plain, mc):
     tab = maf_tables(mc, shape, dtype)
-    sweeps = (
-        (lambda xp, b: packed_sweeps_plain(xp, b, n, omega, offset, tab)[1])
-        if plain else
-        (lambda xp, b: rb_sweeps_n(xp, b, n, omega, offset, tab))
-    )
+    launch = RbSweeps(n, omega, offset, tab)
+    bufs = []  # the two states the step alternates between
 
     def step(xp, bp):
-        return xp, sweeps(xp, None if b_is_zero else bp)
+        b = None if b_is_zero else bp
+        if not bufs or bufs[0].device != xp.device:
+            bufs[:] = (torch.empty_like(xp), torch.empty_like(xp))
+        # ping-pong: write the state that is not xp; a foreign xp (the
+        # start, or the driver's snapshot in its replay) is only read
+        out = bufs[1] if xp.data_ptr() == bufs[0].data_ptr() else bufs[0]
+        if plain or not xp.is_cuda:
+            out.copy_(xp)
+            return out, packed_sweeps_plain(out, b, n, omega, offset, tab)[1]
+        if not _cells(xp):
+            return out, rb_sweeps_n(xp, b, n, omega, offset, tab, out=out)
+        return out, launch(xp, b, out)
 
     single = make_packed_sweep(shape, dtype, omega=omega, offset=offset,
                                b_is_zero=b_is_zero, mc=mc, plain=plain)
-    return _attach(step, shape, offset, n, single)
+    step = _attach(step, shape, offset, n, single)
+    step.launcher = launch
+    return step
 
 
 def make_packed_sweep2x(shape, dtype=torch.float32, *, omega: float,
@@ -442,7 +721,9 @@ def make_packed_sweepnx(shape, dtype=torch.float32, *, omega: float,
                         plain: bool = False):
     """``n`` iterations per call, zero right-hand side (``bp`` is ignored);
     r2 is an (n,) vector.  None for odd I, or n outside 2..9 (2..7 with
-    ``mc``): the JAX package's bounds."""
+    ``mc``): the JAX package's bounds.  As the pair's, the step returns
+    one of two states it owns (the one that is not ``xp``), which holds
+    until the call after next, and its r2 until the next call on CUDA."""
     if _refuses(shape, dtype) or not 2 <= n <= (9 if mc is None else 7):
         return None
     return _make_n(shape, dtype, omega, n, offset, True, plain, mc)

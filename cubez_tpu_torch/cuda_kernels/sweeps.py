@@ -38,7 +38,7 @@ import torch
 from . import _build
 from .dist_halo import current_stream, int_array, pointer_array
 from .rbpack import (_R6, _SUFFIX, _fma, check_tab, count, maf_r, maf_tables,
-                     ptr, table_views)
+                     out_for, ptr, table_views)
 
 KINDS = ("jacobi", "sor2sma")
 # Jacobi iterations a launch of the jacobi step: a divisor of 8, since
@@ -335,7 +335,7 @@ class TileSweep:
         args = self._args.get(key)
         if args is None or (x.shape, x.dtype, x.device) != self._key:
             _check(x, b, self.tab)
-            _out_for(x, out)
+            out_for(x, out)
             if (x.shape, x.dtype, x.device) != self._key:
                 self._setup(x)
             if len(self._args) >= 8:
@@ -350,16 +350,6 @@ class TileSweep:
                      f"K4 {self.kind}")
         count(self.counter, self.tab)
         return self._ret
-
-
-def _out_for(x, out):
-    if out is None:
-        return torch.empty_like(x)
-    if (out.shape != x.shape or out.dtype != x.dtype or out.device != x.device
-            or not out.is_contiguous() or out.data_ptr() == x.data_ptr()):
-        raise ValueError("out must match x in shape, dtype, device and layout, "
-                         "and must not be x (the update is out of place)")
-    return out
 
 
 def _degenerate(x):
@@ -378,7 +368,7 @@ def jacobi_k4(x, b, omega: float, tab=None, out=None, n: int = 1):
             return jacobi_plain(x, b, omega, tab)
         return jacobi_n_plain(x, b, omega, tab, n)
     _check(x, b, tab)
-    out = _out_for(x, out)
+    out = out_for(x, out)
     if _degenerate(x):
         out.copy_(x)
         return out, torch.zeros(() if n == 1 else n, dtype=torch.float64,
@@ -399,7 +389,7 @@ def sor2sma_k4(x, b, omega: float, offset: int = 0, tab=None, out=None):
         out = x.clone() if out is None else out.copy_(x)
         return out, sor2sma_plain(out, b, omega, offset, tab)
     _check(x, b, tab)
-    out = _out_for(x, out)
+    out = out_for(x, out)
     if _degenerate(x):
         out.copy_(x)
         return out, torch.zeros((), dtype=torch.float64, device=x.device)

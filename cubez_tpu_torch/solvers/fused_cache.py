@@ -16,15 +16,17 @@ def get_fused_step(kind: str, grid, omega: float, mc=None,
     """The kernel step for ``kind`` in the JAX package's order, or None
     where no kernel step exists (a line solver with K - 2 < 2).
 
-    sor2sma: the packed n-window chain (n = 6, 4, 3) when the RHS is zero
-    and there are no MAF coefficients, else the packed pair (which streams
-    b; the MAF form's production step, since its deeper windows were
-    measured not to pay on the TPU), else the packed single sweep, and
-    where the packed layout refuses (odd I) the unpacked sweep K4.  jacobi:
-    K4.  pcr_rb: the packed line step K5, and where its layout refuses (odd
-    I) K6's red-black form.  pcr (pcr_j_esa): K6's line-Jacobi form.
-    ``mc`` selects the MAF forms.  ``plain`` makes the step run the plain
-    twins on any device; otherwise the kernels run for CUDA tensors.
+    sor2sma: with a zero RHS the packed n-window chain at
+    ``rbpack.chain_depth`` (6 on the row passes, 2 on the one-pass tiles
+    where ``rbpack.TILE_BYTES`` puts them; constant coefficients and MAF
+    alike: the JAX package kept MAF on the pair, but on the H100 the MAF
+    chain beat the pair), else the packed pair with a streamed b, else the packed
+    single sweep, and where the packed layout refuses (odd I) the unpacked
+    sweep K4.  jacobi: K4.  pcr_rb: the packed line step K5, and where its
+    layout refuses (odd I) K6's red-black form.  pcr (pcr_j_esa): K6's
+    line-Jacobi form.  ``mc`` selects the MAF forms.  ``plain`` makes the
+    step run the plain twins on any device; otherwise the kernels run for
+    CUDA tensors.
     Every step carries ``pad``/``unpad``, the converters to and from its
     state layout (the packed colour folds, or K4's and K6's copy)."""
     shape, dtype = grid.shape_kij, grid.dtype
@@ -43,11 +45,10 @@ def get_fused_step(kind: str, grid, omega: float, mc=None,
     if kind != "sor2sma":
         raise NotImplementedError(f"no kernel step for '{kind}'")
     step = None
-    if b_is_zero and mc is None:
-        for n in (6, 4, 3):
-            step = rbpack.make_packed_sweepnx(shape, dtype, n=n, **kw)
-            if step is not None:
-                break
+    if b_is_zero:
+        step = rbpack.make_packed_sweepnx(
+            shape, dtype, n=rbpack.chain_depth(shape, dtype, mc is not None),
+            **kw)
     if step is None:
         step = rbpack.make_packed_sweep2x(shape, dtype, b_is_zero=b_is_zero,
                                           **kw)

@@ -117,6 +117,83 @@ def test_wrappers_refuse_what_they_cannot_take(dev):
         rb.rb_sweeps_n(x, x.double(), 2, OMEGA)
 
 
+# rb_sweeps_n's edges (csrc/rbpack.cu): K - 2 < 2n, J % 4 != 0 (no aligned
+# copies), one tile and several, odd packed rows, a tall region
+RBN_EDGES = ((6, 10, 9), (5, 12, 14), (16, 16, 16), (13, 10, 17),
+             (40, 22, 46), (37, 22, 45), (24, 130, 70))
+
+
+@pytest.mark.parametrize("setting", [("rows", None, None), ("tile", None, None),
+                                     ("tile", 12, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", RBN_EDGES)
+def test_rb_sweeps_forms_match_plain_twin(dev, shape, dtype, setting,
+                                         monkeypatch):
+    """Both forms of rb_sweeps_n (the tile form also at forced small
+    regions and k chunks, so that a CTA takes several work items) against
+    the twin: constant and MAF, zero and streamed b (the row form), n = 1,
+    2, 3, 6 (the tile form: its n), offsets 0 and 1.  ``out`` is poisoned
+    with NaN, so every point must be written; x is never written; float32
+    bitwise, float64 within 1e-14, residuals to rtol 1e-5."""
+    form, rows, kchunk = setting
+    monkeypatch.setattr(rb, "_force_plan",
+                        dict(form=form, rows=rows, kchunk=kchunk))
+    K, I, J = shape
+    gen = torch.Generator().manual_seed(K * I + J)
+    x = rb.pack_rb(torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    b = rb.pack_rb(torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype, device=dev)[0].mc
+    tol = 0.0 if dtype == torch.float32 else 1e-14
+    cases = [(n, maf, bb) for n in ((1, 2, 3, 6) if form == "rows" else (rb.TILE_N,))
+             for maf in (False, True) for bb in ((None, b) if form == "rows" else (None,))]
+    for n, maf, bb in cases:
+        tab = rb.maf_tables(mc, shape, dtype) if maf else None
+        for offset in (0, 1):
+            launch = rb.RbSweeps(n, OMEGA, offset, tab)
+            x0, out = x.clone(), torch.full_like(x, float("nan"))
+            before = rb.rb_sweeps_n.launches
+            rk = launch(x, bb, out)
+            xp = x.clone()
+            _, rp = rb.packed_sweeps_plain(xp, bb, n, OMEGA, offset, tab)
+            torch.cuda.synchronize()
+            where = (n, maf, bb is not None, offset, launch.plan)
+            assert launch.plan.form == form and rb.rb_sweeps_n.launches == before + 1
+            assert torch.equal(x, x0), where
+            assert bool(torch.isfinite(out).all()), where
+            assert float((out - xp).abs().max()) <= tol, where
+            torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+
+
+def test_rb_sweeps_plan_picks_the_tiles_beyond_the_l2(dev):
+    """At 256^3 f32 (x and out 268 MB) the chain at chain_depth launches
+    the tile form, one launch a call, out of place, the twin's field."""
+    shape = (256, 256, 256)
+    n = rb.chain_depth(shape)
+    step = rb.make_packed_sweepnx(shape, torch.float32, omega=OMEGA, n=n)
+    x = rb.pack_rb(torch.rand(shape, device=dev) * 2 - 1)
+    x0 = x.clone()
+    before = rb.rb_sweeps_n.launches
+    y, r2 = step(x, None)
+    xp = x.clone()
+    _, rp = rb.packed_sweeps_plain(xp, None, n, OMEGA)
+    torch.cuda.synchronize()
+    assert step.launcher.plan.form == "tile" and n == rb.TILE_N
+    assert rb.rb_sweeps_n.launches == before + 1
+    assert torch.equal(x, x0) and torch.equal(y, xp)
+    torch.testing.assert_close(r2, rp, rtol=1e-5, atol=0)
+
+
+def test_rb_sweeps_history_repeats_bitwise(dev, monkeypatch):
+    """The residual folds are in a fixed order: two runs give the same
+    bits, in both forms."""
+    x = rb.pack_rb(torch.rand((40, 22, 46), device=dev) * 2 - 1)
+    for form in rb.FORMS:
+        monkeypatch.setattr(rb, "_force_plan", {"form": form})
+        launch = rb.RbSweeps(rb.TILE_N, OMEGA, 0, None)
+        a = launch(x, None, torch.empty_like(x)).clone()
+        assert torch.equal(a, launch(x, None, torch.empty_like(x)))
+
+
 def test_odd_i_on_cuda_launches_k4(dev):
     """Odd I, where the packed layout refuses, runs K4's colour kernel, and
     stops where the plain twin on the card stops."""

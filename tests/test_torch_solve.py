@@ -19,6 +19,7 @@ from cubez_tpu.solvers.steps import make_step as j_make_step
 from cubez_tpu.utils.native import write_history as j_write_history
 
 import cubez_tpu_torch as czt
+from cubez_tpu_torch.cuda_kernels import rbpack
 from cubez_tpu_torch.solvers import driver
 from cubez_tpu_torch.solvers.fused_cache import get_fused_step
 from cubez_tpu_torch.solvers.steps import make_step
@@ -86,13 +87,25 @@ def test_auto_and_plain_agree_on_cpu():
 
 
 def test_dispatch_follows_jax_order():
+    """The JAX package's order of the packed steps (the zero-b chain,
+    else the pair with b, else the single sweep, K4 for odd I), with two
+    departures measured on the H100: MAF with a zero b takes the chain
+    (JAX takes the pair), and beyond the L2 the chain runs the tile
+    form's depth (JAX takes the deepest of 6, 4, 3 whose windows fit the
+    TPU's VMEM, else the pair)."""
     p = czt.Problem.poisson_cube(16, device="cpu", maf=True)
     g = p.grid
     assert get_fused_step("sor2sma", g, 1.5, b_is_zero=True).iters_per_call == 6
     assert get_fused_step("sor2sma", g, 1.5).iters_per_call == 2
-    # MAF skips the window chain for the pair, as the JAX package does
+    # MAF takes the window chain too (the JAX package keeps it on the pair;
+    # on the H100 the chain measured faster: rbpack.chain_depth)
     assert get_fused_step("sor2sma", g, 1.5, mc=p.mc,
-                          b_is_zero=True).iters_per_call == 2
+                          b_is_zero=True).iters_per_call == 6
+    assert get_fused_step("sor2sma", g, 1.5, mc=p.mc).iters_per_call == 2
+    # beyond the L2 the chain runs the one-pass tiles at their depth
+    big = czt.Grid(512, 512, 512, torch.float32, "cpu")
+    assert get_fused_step("sor2sma", big, 1.5,
+                          b_is_zero=True).iters_per_call == rbpack.TILE_N
     odd = czt.Problem.poisson_cube((15, 16, 16), device="cpu").grid
     assert get_fused_step("sor2sma", odd, 1.5, b_is_zero=True).iters_per_call == 1
 
