@@ -14,14 +14,15 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
 3. holds every kernel against its plain PyTorch twin on the card, float32
    fields bitwise equal, float64 within 1e-14, residuals to rtol 1e-5:
    - the constant-coefficient packed steps at 128^3, 124^3 and a ragged
-     (37, 22, 45) (K, I, J): the single sweep with zero and seeded b, the
-     pair with b, n = 3, 4, 6, offsets 0 and 1;
-   - rb_sweeps_n (K2/K3) in both forms of its plan: the one-pass tile
-     form (its n, a zero b; constant and MAF; also at forced small regions
-     and k chunks) at those shapes and the plan's edges (RBN_EDGES: K - 2
-     < 2n, J % 4 != 0, one tile and several), the row form (n = 1, 2, 3,
-     6, zero and seeded b) at the edges; ``out`` poisoned with NaN, x
-     never written;
+     (37, 22, 45) (K, I, J): the single sweep (K1, one rb_single launch
+     an iteration) with zero and seeded b, the pair with b, n = 3, 4, 6,
+     offsets 0 and 1;
+   - rb_sweeps_n (K1-K3) in both forms of its plan: the one-pass tile
+     form (n = 2 with a zero b, and K1's n = 1 with zero and seeded b;
+     constant and MAF; also at forced small regions and k chunks) at those
+     shapes and the plan's edges (RBN_EDGES: K - 2 < 2n, J % 4 != 0, one
+     tile and several), the row form (n = 1, 2, 3, 6, zero and seeded b)
+     at the edges; ``out`` poisoned with NaN, x never written;
    - the MAF packed steps (single with and without b, pair with and
      without b, n = 3 and 6) on stretched-grid coefficients, and K4 on
      its plane tiles (the one-pass red-black step, and the Jacobi step
@@ -36,12 +37,15 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
      multiple of its 32 lines, odd I and J);
 4. the main path, ``solve(Problem.poisson_cube(128, device="cuda"),
    "sor2sma", omega=1.5, itr_max=10000)``, with the kernels' launch counts
-   zeroed just before: 1777-1849 iterations (the f32 oracle's 1813 +-2%),
-   history to rtol 1e-3, every kernel launched, and the same Error max as a
-   plain-twin solve on the card (1e-5);
+   zeroed just before: 1813 iterations (the f32 oracle's count, which the
+   kernels, bitwise their twins, must give exactly), history to rtol 1e-3,
+   every kernel launched (the stopping chunk replayed through K1's
+   rb_single launches), and the stopping field bitwise a plain-twin
+   solve's on the card;
 5. float64 at 128^3: the f64 oracle's count +-1%, history to rtol 1e-6;
-6. float32 at 512^3: within 2% of the f64 oracle's 5781 iterations, the
-   chain on the one-pass tile form (its launches counted); then 20 fixed
+6. float32 at 512^3: 5787 iterations (within 2% of the f64 oracle's
+   5781), the chain on the one-pass tile form and its replay on K1's tile
+   form (their launches counted); then 20 fixed
    sweeps of the MAF chain the dispatch builds there (the tile form's MAF
    kernel), its field bitwise its plain twin's;
 7. the slice-2 paths at 128^3 f32, each with the counts zeroed just before
@@ -123,8 +127,10 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     line-Jacobi pass, zero and streamed b, on the 64^3 blocks of 128^3 over
     (2, 2, 2) and a (128, 64, 64) block over (1, 2, 2); K9 over all the
     blocks of each mesh in one launch (pcr_blocks: 'pcr' on the eight,
-    'fastdiag' on the four), every variant; K10 (fused_pcr) at 128^3 in
-    every variant; float32 bitwise, float64 within 1e-14;
+    'fastdiag' on the four), every variant; K10 (fused_pcr) in its line
+    form at 128^3 in every variant and at 512^3 (colour 1 and line-Jacobi,
+    zero b), and in its tile form on a (600, 14, 40) field of lines past
+    512 rows; float32 bitwise, float64 within 1e-14;
 17. the dist line path, each solve with the counts zeroed just before and
     read just after: solve_dist at 128^3 f32 of pcr_rb, pcr_rb_maf (omega
     1.5) and pcr_j_esa (1.0) over (1, 2, 2) (K9 'fastdiag'; the serial
@@ -136,12 +142,12 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     sor2sma_maf 'color' at 128^3 on parallel/dist.py (no kernel; the serial
     counts 5380 and 1813 +-2%), and K10's own entry point
     (make_fused_pcr_step 'pcr_rb' and 'pcr', constant and MAF) for 60
-    fixed sweeps, within 1e-4 of K5/K6's;
+    fixed sweeps, one launch a sweep, within 1e-4 of K5/K6's;
 18. times the dist line steps per iteration at 128^3 over (2, 2, 2) and
     (1, 2, 2) (with the device time, device launches and busy share an
     iteration) and at 512^3 over (2, 2, 2), K9 per launch over all the
-    blocks of the path's meshes and K10 per call at 128^3, against their
-    twins.
+    blocks of the path's meshes and K10 per colour pass at 128^3 and
+    512^3 (and its pcr_rb step at 128^3), against their twins.
 
 The line before the last is a JSON object with one entry per kernel
 variant (its bound: the larger of the bytes it must move over 3.35 TB/s
@@ -256,7 +262,7 @@ def main():
 
     # each wrapper counts its launches, and separately its MAF launches; a
     # kernel variant is a wrapper's constant or MAF form
-    wrappers = {"rb_color": rb.rb_color, "rb_sweeps_n": rb.rb_sweeps_n,
+    wrappers = {"rb_single": rb.rb_single, "rb_sweeps_n": rb.rb_sweeps_n,
                 "k4_jacobi": k4.jacobi_k4, "k4_rb_color": k4.sor2sma_k4,
                 "rbl": k5.rbl, "line_j": k6.line_j, "line_rb": k6.line_rb,
                 "dist_rb_sweeps": k7.dist_rb_sweeps, "fused_pcr": k10.fused_pcr}
@@ -266,8 +272,9 @@ def main():
     def zero_counts():
         for w in wrappers.values():
             w.launches = w.maf_launches = 0
-        # K2/K3, K8 and K9 count their launches by variant too
-        for w in (rb.rb_sweeps_n, k8.block_sweep, k9.block_pcr):
+        # K1, K2/K3, K8, K9 and K10 count their launches by variant too
+        for w in (rb.rb_single, rb.rb_sweeps_n, k8.block_sweep, k9.block_pcr,
+                  k10.fused_pcr):
             w.variant_launches = {}
         for w in (k8.block_sweep, k9.block_pcr):
             w.launches = 0
@@ -291,6 +298,15 @@ def main():
                 ("rb_sweeps_n_maf_tile", "tile", True, None)):
             out[name] = sum(v for (f, m, b_), v in vl.items() if f == form
                             and m == maf and has_b in (None, b_))
+        # K1 by form: the row form (rb_single, rb_single_maf, counted
+        # above), the one-pass tile form beyond the L2 (rb_single_tile)
+        out["rb_single_tile"] = sum(
+            v for (f, _, _), v in rb.rb_single.variant_launches.items()
+            if f == "tile")
+        for name in ("rb_single", "rb_single_maf"):
+            out[name] -= sum(v for (f, m, _), v in
+                             rb.rb_single.variant_launches.items()
+                             if f == "tile" and m == name.endswith("_maf"))
         for v in ("jacobi", "colour", "both", "interior", "shell"):
             out["block_sweep_" + v] = k8.block_sweep.variant_launches.get(v, 0)
         for v in k9_variants:
@@ -366,9 +382,9 @@ def main():
                   ("pcr_j", "line_j", new_shapes + LINE_EDGES),
                   ("pcr_rb", "line_rb", ((125, 125, 125), RAGGED) + LINE_EDGES))
     cases = [
-        ("single b=0", "rb_color", const_shapes, False,
+        ("single b=0", "rb_single", const_shapes, False,
          packed(rb.make_packed_sweep, b_is_zero=True)),
-        ("single b", "rb_color", const_shapes, False,
+        ("single b", "rb_single", const_shapes, False,
          packed(rb.make_packed_sweep, b_is_zero=False)),
         ("pair b", "rb_sweeps_n", const_shapes, False,
          packed(rb.make_packed_sweep2x, b_is_zero=False)),
@@ -377,9 +393,9 @@ def main():
          packed(rb.make_packed_sweepnx, n=n))
         for n in (3, 4, 6)
     ] + [
-        ("MAF single b=0", "rb_color_maf", new_shapes, True,
+        ("MAF single b=0", "rb_single_maf", new_shapes, True,
          packed(rb.make_packed_sweep, b_is_zero=True)),
-        ("MAF single b", "rb_color_maf", new_shapes, True,
+        ("MAF single b", "rb_single_maf", new_shapes, True,
          packed(rb.make_packed_sweep, b_is_zero=False)),
         ("MAF pair b=0", "rb_sweeps_n_maf_chain", new_shapes, True,
          packed(rb.make_packed_sweep2x, b_is_zero=True)),
@@ -438,9 +454,10 @@ def main():
                     check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
                     n_cmp += 1
     # both forms of rb_sweeps_n (K2/K3) against the twin: the tile form
-    # (its n, a zero b; also at forced small regions and k chunks, so that
-    # a CTA takes several work items) at the main shapes and the edges, the
-    # row form at the edges; out poisoned with NaN, x never written
+    # (its n with a zero b, and n = 1, K1's launch, with and without b;
+    # also at forced small regions and k chunks, so that a CTA takes
+    # several work items) at the main shapes and the edges, the row form at
+    # the edges; out poisoned with NaN, x never written
     for shape in ((128, 128, 128), (124, 124, 124), RAGGED) + RBN_EDGES:
         for dtype in (f32, f64):
             tol = 0.0 if dtype == f32 else 1e-14
@@ -455,13 +472,15 @@ def main():
                 # the launcher's plan, forced (a test hook of rbpack)
                 rb._force_plan = dict(form=form, rows=rows, kchunk=kchunk)
                 tile = form == "tile"
-                for n in (rb.TILE_N,) if tile else (1, 2, 3, 6):
+                for n in (1, rb.TILE_N) if tile else (1, 2, 3, 6):
                     for maf in (False, True):
-                        for bb in (None,) if tile else (None, b):
+                        for bb in (None,) if tile and n > 1 else (None, b):
                             variant = ("rb_sweeps_n" + ("_maf" if maf else "")
                                        + ("_tile" if tile else "")
                                        + ("_chain" if maf and not tile and bb is None
                                           else ""))
+                            if tile and n == 1:
+                                variant = "rb_single_tile"
                             for offset in (0, 1):
                                 launch = rb.RbSweeps(n, OMEGA, offset, tabs[maf])
                                 x0 = x.clone()
@@ -500,12 +519,15 @@ def main():
     sync()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    launches = {k: counts[k] for k in ("rb_color", "rb_sweeps_n")}
+    launches = {k: counts[k] for k in ("rb_single", "rb_sweeps_n")}
     path_launches.update(launches)
     ref = load_history("f32_sor2sma_128_w1.5.txt")
     check(res.x.shape == (128, 128, 128) and bool(torch.isfinite(res.x).all()),
           "main path: field of the wrong shape or not finite")
     check(1777 <= res.iters <= 1849, f"main path: {res.iters} iterations")
+    # the kernels are bitwise their twins, so the count is the twins' and
+    # the f32 oracle's (1813), the stopping chunk replayed through K1
+    check(res.iters == 1813, f"main path: {res.iters} iterations, not 1813")
     m = min(res.iters, len(ref)) - 1
     hist = res.history.cpu().tolist()
     worst = max(abs(h / r - 1) for h, r in zip(hist[:m], ref[:m]))
@@ -517,10 +539,13 @@ def main():
     err_p, loc_p = max_error_loc(prob.grid, res_p.x)
     check(res_p.iters == res.iters, f"plain solve: {res_p.iters} iterations")
     check(abs(err_k - err_p) <= 1e-5, f"Error max {err_k} vs plain {err_p}")
+    check(torch.equal(res.x, res_p.x),
+          "main path: the stopping field differs from the plain twin's")
     print(f"main path 128^3 f32: {res.iters} iterations (f32 oracle "
           f"{len(ref)}), res {res.res:e}, history rtol {worst:.2e}, "
           f"wall {wall:.3f} s, launches {launches}, Error max {err_k:e} at "
-          f"{loc_k} (plain twin: {err_p:e} at {loc_p}) {tag}", flush=True)
+          f"{loc_k} (plain twin: {err_p:e} at {loc_p}; field bitwise the "
+          f"twin's) {tag}", flush=True)
 
     # ---- 5. float64 at 128^3 -------------------------------------------------
     stamp(5)
@@ -550,14 +575,20 @@ def main():
     check(bool(torch.isfinite(res512.x).all()), "512^3: field not finite")
     check(abs(res512.iters - 5781) <= 5781 * 2 // 100,
           f"512^3: {res512.iters} iterations vs the f64 oracle's 5781")
-    # beyond the L2 the dispatch's chain runs the one-pass tile form
+    check(res512.iters == 5787, f"512^3: {res512.iters} iterations, not 5787")
+    # beyond the L2 the dispatch's chain runs the one-pass tile form, and
+    # the stopping chunk's replay K1's tile form
     path_launches["rb_sweeps_n_tile"] = counts["rb_sweeps_n_tile"]
+    path_launches["rb_single_tile"] = counts["rb_single_tile"]
+    check(counts["rb_single_tile"] > 0 and counts["rb_single"] == 0,
+          f"512^3: the replay did not run K1's tile form "
+          f"({counts['rb_single_tile']} tile, {counts['rb_single']} row launches)")
     check(counts["rb_sweeps_n_tile"] > 0 and counts["rb_sweeps_n"] == 0,
           f"512^3: the tile form was not launched ({counts['rb_sweeps_n_tile']} "
           f"tile, {counts['rb_sweeps_n']} row launches)")
     print(f"512^3 f32: {res512.iters} iterations (f64 oracle 5781), "
           f"res {res512.res:e}, wall {wall512:.3f} s, launches "
-          f"{ {k: counts[k] for k in ('rb_sweeps_n_tile', 'rb_color')} } {tag}",
+          f"{ {k: counts[k] for k in ('rb_sweeps_n_tile', 'rb_single_tile')} } {tag}",
           flush=True)
     # phase 14 holds the distributed 512^3 solve to this count and field
     iters512, x512 = res512.iters, res512.x
@@ -627,7 +658,7 @@ def main():
     # oracle sums per colour, to the f32 oracle's.
     for name, omega, oracle, variants, curve in (
         ("sor2sma_maf", OMEGA, "f32_sor2sma_maf_128_w1.5.txt",
-         ("rb_sweeps_n_maf_chain", "rb_color_maf"), None),
+         ("rb_sweeps_n_maf_chain", "rb_single_maf"), None),
         ("jacobi", OMEGA_J, "f32_jacobi_128_w0.8.txt", ("k4_jacobi",),
          "f32_jacobi_128_w0.8_f64sum.txt"),
         ("jacobi_maf", OMEGA_J, "f32_jacobi_maf_128_w0.8.txt",
@@ -986,6 +1017,41 @@ def main():
               f"{launch.plan} {tag}", flush=True)
         return run, run_twin
 
+    def k1_calls(name, x, b, mc, form=None):
+        """(kernel, twin) calls of K1's single step (one launch an
+        iteration, both colours; the plan's form, or ``form``) on x, each
+        handing the step the field its last call returned.  The first call
+        of each is held to the other here (bit for bit)."""
+        sh_ = (x.shape[1], 2 * x.shape[2], x.shape[3])
+        kw = dict(omega=OMEGA, b_is_zero=b is None, mc=mc)
+        rb._force_plan = {} if form is None else {"form": form}
+        step = rb.make_packed_sweep(sh_, x.dtype, **kw)
+        held = [x.clone()]
+        twin_step = rb.make_packed_sweep(sh_, x.dtype, plain=True, **kw)
+        twin = [x.clone()]
+
+        def run():
+            held[0], r2 = step(held[0], b)
+            return r2
+
+        def run_twin():
+            twin[0], r2 = twin_step(twin[0], b)
+            return r2
+        rk, rp = run(), run_twin()
+        sync()
+        rb._force_plan = {}
+        e = float((held[0] - twin[0]).abs().max())
+        where = f"{name} {sh_} {step.launcher.plan.form}"
+        check(step.launcher.plan.form == ("tile" if name.endswith("_tile") else "rows"),
+              f"timed call: the plan's form: {where}")
+        check(e == 0.0, f"timed call: field differs by {e}: {where}")
+        check(float((rk - rp).abs() / rp.abs()) <= 1e-5, f"timed call: r2: {where}")
+        err[name] = max(err.get(name, 0.0), e)
+        print(f"K1 plan {sh_} maf={mc is not None} b={b is not None}: "
+              f"{step.launcher.plan.form}, grid {step.launcher.grid} CTAs {tag}",
+              flush=True)
+        return run, run_twin
+
     def k4_calls(kind, x, mc):
         """(kernel, twin) calls of K4's step on x's shape, each handing the
         step the field its last call returned."""
@@ -1003,10 +1069,9 @@ def main():
         return tuple(out_)
 
     calls = {
-        "rb_color": (lambda: rb.rb_color(xs, None, 0, OMEGA),
-                     lambda: rb.rb_color_plain(xs, None, 0, OMEGA)),
-        "rb_color_maf": (lambda: rb.rb_color(xs, None, 0, OMEGA, tab=tab),
-                         lambda: rb.rb_color_plain(xs, None, 0, OMEGA, tab=tab)),
+        # K1: one iteration a launch (both colours), as the replays call it
+        "rb_single": k1_calls("rb_single", xs, None, None),
+        "rb_single_maf": k1_calls("rb_single_maf", xs, None, mc128),
         # K3 at the dispatch's depth (the row form at 128^3), K2 (the MAF
         # pair with b), the MAF chain
         "rb_sweeps_n": rb_calls("rb_sweeps_n", xs, None, rb.chain_depth(sh),
@@ -1071,6 +1136,10 @@ def main():
                                           "rows"),
         "rb_sweeps_n_maf_tile": rb_calls("rb_sweeps_n_maf_tile", xs5, None, nm5,
                                          tab5),
+        # K1 at 512^3: the one-pass tile form the replays take there, and
+        # the row form beside it
+        "rb_single": k1_calls("rb_single", xs5, None, None, "rows"),
+        "rb_single_tile": k1_calls("rb_single_tile", xs5, None, None),
         "k4_jacobi": k4_calls("jacobi", xu5, None),
         "k4_jacobi_maf": k4_calls("jacobi", xu5, mc512),
         "rbl": (lambda: k5.rbl(xl5, None, OMEGA),
@@ -1111,8 +1180,9 @@ def main():
     fb = 4 * 128**3  # one float32 field
     inner = 126**3
     work = {
-        "rb_color": (1.5 * fb, 11 * inner / 2),
-        "rb_color_maf": (1.5 * fb, 20 * inner / 2),
+        # K1: an iteration reads x and writes out once
+        "rb_single": (2 * fb, 11 * inner),
+        "rb_single_maf": (2 * fb, 20 * inner),
         "rb_sweeps_n": (2 * fb, rb.chain_depth(sh) * 11 * inner),
         "rb_sweeps_n_maf": (3 * fb, 2 * 21 * inner),
         "rb_sweeps_n_maf_chain": (2 * fb,
@@ -1143,8 +1213,10 @@ def main():
         "rb_sweeps_n_maf": (3 * fb5, 2 * 21 * inner5),
         "rb_sweeps_n_maf_chain": (2 * fb5, dm128 * 20 * inner5),
         "rb_sweeps_n_maf_tile": (2 * fb5, nm5 * 20 * inner5),
+        "rb_single": (2 * fb5, 11 * inner5),
+        "rb_single_tile": (2 * fb5, 11 * inner5),
     }
-    for name in ("rb_sweeps_n_tile", "rb_sweeps_n_maf_tile"):
+    for name in ("rb_sweeps_n_tile", "rb_sweeps_n_maf_tile", "rb_single_tile"):
         work[name] = work512[name]
         per_call[name] = per_call_512[name]
 
@@ -1727,15 +1799,22 @@ def main():
                         check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
                         n_cmp += 1
         del cmk, xs, bbs, got, want
-    sh = (128, 128, 128)
-    for dtype in (f32, f64):
+    # K10: its line form at 128^3 and 512^3 (every variant at 128^3; at
+    # 512^3 colour 1 and the line-Jacobi pass), and the tile form its plan
+    # keeps for lines past 512 rows, on a (600, 14, 40) field
+    k10_cases = (((128, 128, 128), (0, 1, None), "lines"),
+                 ((512, 512, 512), (1, None), None),
+                 ((600, 14, 40), (0, 1, None), "tile"))
+    for (sh, colours, form), dtype in [(c, d) for c in k10_cases for d in (f32, f64)]:
         tol = 0.0 if dtype == f32 else 1e-14
         mc = stretched_mc(sh, dtype)
         x, b = rand(sh, dtype).to(dev), rand(sh, dtype).to(dev)
         for maf in (False, True):
             tab = rb.maf_tables(mc, sh, dtype) if maf else None
-            for colour in (0, 1, None):
-                for bb in (None, b):
+            for colour in colours:
+                plan = k10.line_plan(sh[0] - 2, dtype, maf, colour is None)
+                check(form in (None, plan.form), f"K10 plan at {sh}: {plan}")
+                for bb in (None, b) if sh[0] < 512 else (None,):
                     xk, rk = k10.fused_pcr(x.clone(), bb, OMEGA, colour, 1, tab)
                     xp, rp = k10.fused_pcr_plain(x.clone(), bb, OMEGA, colour, 1,
                                                  tab)
@@ -1744,12 +1823,14 @@ def main():
                     e = float((xk - xp).abs().max())
                     err[name] = max(err.get(name, 0.0), e)
                     rel = float((rk - rp).abs() / rp.abs())
-                    where = (f"K10 maf={maf} colour={colour} b={bb is not None} "
-                             f"{dtype}")
+                    where = (f"K10 {plan.form} {sh} maf={maf} colour={colour} "
+                             f"b={bb is not None} {dtype}")
                     check(torch.isfinite(xk).all(), f"non-finite field: {where}")
                     check(e <= tol, f"field differs by {e}: {where}")
                     check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
                     n_cmp += 1
+                    del xk, xp
+        del x, b, mc
     print(f"K9 and K10 vs plain twins: {n_cmp} comparisons passed (f32 bitwise, "
           f"f64 <= 1e-14); max |field diff| "
           + ", ".join(f"{k} {v:.3e}" for k, v in sorted(err.items())
@@ -1845,8 +1926,8 @@ def main():
             sync()
             v = "fused_pcr" + ("_maf" if maf else "")
             got = read_counts()[v]
-            check(got == (120 if kind == "pcr_rb" else 60),
-                  f"K10 {kind} maf={maf}: {got} launches")
+            # the line form: one launch a sweep, both colours of pcr_rb in it
+            check(got == 60, f"K10 {kind} maf={maf}: {got} launches")
             path_launches[v] = path_launches.get(v, 0) + got
             ref = get_fused_step(kind, p.grid, omega, mc=p.mc, b_is_zero=True)
             xr = ref.unpad(fixed_sweeps(ref, ref.pad(p.x0), None, 60))
@@ -1920,13 +2001,18 @@ def main():
                 return run
 
             k9calls[k9.variant(form, maf)] = (call(False), call(True))
+    sh = (128, 128, 128)
     x10 = rand(sh, f32).to(dev)
     tab10 = rb.maf_tables(mc, sh, f32)
-    k9calls["fused_pcr"] = (lambda: k10.fused_pcr(x10, None, OMEGA, 0),
-                            lambda: k10.fused_pcr_plain(x10, None, OMEGA, 0))
-    k9calls["fused_pcr_maf"] = (
-        lambda: k10.fused_pcr(x10, None, OMEGA, 0, tab=tab10),
-        lambda: k10.fused_pcr_plain(x10, None, OMEGA, 0, tab=tab10))
+
+    def k10_calls(x, tab):
+        """(kernel, twin) calls of a colour-0 pass through its launcher,
+        built once as a step keeps it."""
+        launch = k10.PcrLines((0,), OMEGA, 0, tab)
+        return (lambda: launch(x, None, x),
+                lambda: k10.fused_pcr_plain(x, None, OMEGA, 0, tab=tab)[1])
+    k9calls["fused_pcr"] = k10_calls(x10, None)
+    k9calls["fused_pcr_maf"] = k10_calls(x10, tab10)
     for name, (kfn, pfn) in k9calls.items():
         kfn(), pfn()
         sync()
@@ -1939,6 +2025,33 @@ def main():
               f"{name} {per_call[name][0]:.4f} ms, plain twin "
               f"{per_call[name][1]:.4f} ms {tag}")
     check(bool(torch.isfinite(x10).all()), "K10 timing field not finite")
+    # K10's step (pcr_rb: both colours, one launch) at 128^3, and its
+    # colour pass at 512^3, kernel against twin in turns
+    k10_extra = {}
+    for maf in (False, True):
+        t_ = tab10 if maf else None
+        step = k10.make_fused_pcr_step("pcr_rb", sh, f32, omega=OMEGA,
+                                       b_is_zero=True,
+                                       mc=mc if maf else None)
+        k10_extra["fused_pcr" + ("_maf" if maf else "")] = {
+            "step_ms": events_ms(lambda: step(x10, None), 50)}
+    x5 = rand((512,) * 3, f32).to(dev)
+    mc5 = Problem.poisson_cube(512, device=dev, maf=True).mc
+    tab5 = rb.maf_tables(mc5, (512,) * 3, f32)
+    for name, t_ in (("fused_pcr", None), ("fused_pcr_maf", tab5)):
+        kfn, pfn = k10_calls(x5, t_)
+        kfn(), pfn()
+        sync()
+        p1 = events_ms(pfn, 1)
+        k1 = events_ms(kfn, 10)
+        k2 = events_ms(kfn, 10)
+        p2 = events_ms(pfn, 1)
+        per_call_512[name] = (min(k1, k2), min(p1, p2))
+        print(f"per call at 512^3 f32 colour 0: {name} {per_call_512[name][0]:.4f} "
+              f"ms, plain twin {per_call_512[name][1]:.4f} ms; pcr_rb step at "
+              f"128^3 {k10_extra[name]['step_ms']:.4f} ms {tag}", flush=True)
+    check(bool(torch.isfinite(x5).all()), "K10 512^3 timing field not finite")
+    del x5, mc5, tab5
     # their least work, colour 0 (half the lines) with b zero, over the rows
     # a pass updates (every inner point of 128^3 sits in one block's line,
     # so half of 126^3 rows on either mesh):
@@ -1965,6 +2078,14 @@ def main():
         "fused_pcr_maf": (4 * (128**3 + inner / 2),
                           (15 + var10) * inner / 2 + 4 * lines10),
     })
+    pn5 = num_stage(510)
+    var5, tab5_ops = 16 * (pn5 - 1) + 6 + 5, 5 * (pn5 - 1) + 3 + 5
+    work512.update({
+        "fused_pcr": (4 * (512**3 + inner5 / 2),
+                      (4 + tab5_ops) * inner5 / 2 + 4 * 510 * 510 / 2),
+        "fused_pcr_maf": (4 * (512**3 + inner5 / 2),
+                          (15 + var5) * inner5 / 2 + 4 * 510 * 510 / 2),
+    })
 
     rbpack_cu = "cubez_tpu_torch/csrc/rbpack.cu"
     sweeps_cu = "cubez_tpu_torch/csrc/sweeps.cu"
@@ -1984,8 +2105,11 @@ def main():
     k10_site = "cubez_tpu/pallas_kernels/pcr.py:414"
     dist_halo_cu = "cubez_tpu_torch/csrc/dist_halo.cu"
     meta = {
-        "rb_color": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
-        "rb_color_maf": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
+        # K1: rb_sweeps_n's launch at n = 1, the row form at 128^3 and the
+        # one-pass tile form beyond the L2 (the 512^3 replays, phase 6)
+        "rb_single": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
+        "rb_single_maf": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
+        "rb_single_tile": (rbpack_cu, "cubez_tpu/pallas_kernels/rbpack.py:732"),
         "rb_sweeps_n": (rbpack_cu, "cubez_tpu/pallas_kernels/sweeps2x.py:480"),
         "rb_sweeps_n_maf": (rbpack_cu,
                             "cubez_tpu/pallas_kernels/sweeps2x.py:552"),
@@ -2042,6 +2166,7 @@ def main():
              "launches": path_launches[name], "max_abs_err": err[name],
              "ms": per_call[name][0], "plain_ms": per_call[name][1],
              "bound_ms": bms, "bound_by": by, "library_ms": per_call[name][2] if len(per_call[name]) > 2 else None})
+        kernels[-1].update(k10_extra.get(name, {}))
         if name in work512:
             kernels[-1]["shape"] = [512] * 3 if name.endswith("_tile") else [128] * 3
         if name in per_call_512:

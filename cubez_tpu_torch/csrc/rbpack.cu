@@ -22,21 +22,21 @@
 // The MAF weights are per-axis vectors indexed by the physical k, i = 2*i2
 // + s and j of the point (the kMaf template flag selects that form).
 //
-// rb_color_kernel replaces K1, cubez_tpu/pallas_kernels/rbpack.py:732
-// (make_packed_sweep -> _packed_kernel); one launch updates one colour, in
-// place.
-//
-// K3, cubez_tpu/pallas_kernels/sweeps2x.py:480 (build_nx ->
-// _sweepnx_kernel, n iterations with a zero right-hand side), and K2,
+// K1, cubez_tpu/pallas_kernels/rbpack.py:732 (make_packed_sweep ->
+// _packed_kernel, one red-black iteration), K3, sweeps2x.py:480 (build_nx
+// -> _sweepnx_kernel, n iterations with a zero right-hand side), and K2,
 // sweeps2x.py:552 (build_2x -> _sweep2x_kernel, n = 2 with an optional
-// streamed b), run n full red-black iterations in one cooperative launch,
-// OUT OF PLACE: they read x and write every point of ``out`` (the
-// Dirichlet shell copied), never x.  Two forms, chosen on the host from
-// the field's size (cuda_kernels/rbpack.py::tile_plan):
+// streamed b), run n full red-black iterations in one cooperative launch
+// (K1: n = 1, both colours and the residual in one launch), OUT OF PLACE:
+// they read x and write every point of ``out`` (the Dirichlet shell
+// copied), never x.  Two forms, chosen on the host from the field's size
+// (cuda_kernels/rbpack.py::tile_plan):
 //
 // rb_tile_sweeps_kernel, one pass over the field for all n iterations (the
-// TPU kernel's lagged windows, sweeps2x.py:1-22, on Hopper's terms), built
-// for n = kTileN and a zero b.  A work item is an (i2, j) tile of ti x tj
+// TPU kernel's lagged windows, sweeps2x.py:1-22, and K1's own lag of a
+// plane between the colours, rbpack.py:673-790, on Hopper's terms), built
+// for n = kTileN with a zero b and for n = 1 (K1) with or without a
+// streamed b, which each update reads from global memory.  A work item is an (i2, j) tile of ti x tj
 // owned cells and a chunk of kchunk owned planes; the CTA walks k.  The 2n
 // colour half-steps are levels: level h (1..2n) updates colour (h - 1) & 1
 // at plane s - h while the loads reach plane s, from level h - 1 (the
@@ -78,7 +78,7 @@
 // type, one partial a colour (row form) or a level pair (tile form) and
 // iteration; after a grid-wide sync the CTAs fold each iteration's
 // partials in float64 in a fixed order: no atomics, so histories repeat
-// bitwise from run to run.  rb_color's partials are folded on the host.
+// bitwise from run to run.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -96,51 +96,7 @@ using namespace cz;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// Update interior point ``idx`` of colour ``colour`` in place and return its
-// dp (0 for the I-boundary rows, which are not updated).  ``idx`` runs over
-// k in [1, K-2], i2 in [0, I2), j in [1, J-2], j fastest.
-template <typename T, bool kMaf>
-__device__ __forceinline__ T update_point(
-    T* __restrict__ c, const T* __restrict__ o, const T* __restrict__ b,
-    const T* __restrict__ tab, unsigned idx, unsigned K, unsigned I2,
-    unsigned J, int colour, int offset, T omega) {
-  const unsigned jm = J - 2;
-  const unsigned j = 1 + idx % jm;
-  const unsigned r = idx / jm;
-  const unsigned i2 = r % I2;
-  const unsigned k = 1 + r / I2;
-  const unsigned s = (k + j + unsigned(offset) + 1u + unsigned(colour)) & 1u;
-  // physical i = 2*i2 + s must lie in [1, I-2]
-  if ((i2 == 0 && s == 0) || (i2 + 1 == I2 && s == 1)) return T(0);
-  const size_t p = (size_t(k) * I2 + i2) * J + j;
-  const T* bp = b != nullptr ? b + p : nullptr;
-  const T cen = c[p];
-  const T dp = packed_dp<T, kMaf>(o, bp, tab, cen, p, k, i2, j, s, K, I2, J, omega);
-  c[p] = add_rn(cen, dp);
-  return dp;
-}
-
-// One colour of one red-black iteration: one thread per interior point.
-template <typename T, bool kMaf>
-__global__ void __launch_bounds__(kThreads) rb_color_kernel(
-    T* x, const T* b, const T* tab, T* partials, int K,
-    int I2, int J, int colour, int offset, T omega, unsigned n_cells) {
-  const size_t plane = size_t(K) * I2 * J;
-  T* c = x + colour * plane;
-  const T* o = x + (1 - colour) * plane;
-  const T* bc = b != nullptr ? b + colour * plane : nullptr;
-  const unsigned idx = blockIdx.x * kThreads + threadIdx.x;
-  T acc = 0;
-  if (idx < n_cells) {
-    const T dp = update_point<T, kMaf>(c, o, bc, tab, idx, K, I2, J, colour,
-                                       offset, omega);
-    acc = dp * dp;
-  }
-  const T tot = block_sum<kThreads>(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = tot;
-}
-
-// ---- K2 and K3: n iterations a launch ----------------------------------------
+// ---- K1, K2 and K3: n iterations a launch ---------------------------------
 
 // Cells of a region row in shared memory (a multiple of 32: kRow / 32 a
 // lane), rows of a region at most, planes of x in flight, iterations a
@@ -385,8 +341,9 @@ struct RegionCopy {
 // and lane + 32 of the region; each level keeps its last three planes at
 // them in registers (fifo[h][0] is plane s - h, [1] and [2] the two
 // before) and publishes its plane in shared memory (two slots a level, by
-// plane parity) for its neighbours to read at the next step.
-template <typename T, bool kMaf, int N>
+// plane parity) for its neighbours to read at the next step.  kB: a
+// streamed b, read at the cells a level updates.
+template <typename T, bool kMaf, int N, bool kB>
 __global__ void __launch_bounds__(kTileThreads) rb_tile_sweeps_kernel(
     const __grid_constant__ Args<T> a) {
   constexpr int H = 2 * N, R = N + 1;
@@ -516,9 +473,14 @@ __global__ void __launch_bounds__(kTileThreads) rb_tile_sweeps_kernel(
             const bool u = rin && cin[j];
             AxisWeights<T> wij{};
             if constexpr (kMaf) wij = sp ? wi[1][i] : wi[0][i];
-            T dp = point_dp<T, kMaf, false>(wk, wij, wj[j], zm, zp, sp ? other : o0,
-                                            sp ? o0 : other, op[x + 1], op[x - 1], nullptr,
-                                            cen, a.omega);
+            // b only where the cell updates: off the field its offset is not
+            const T* bp = nullptr;
+            if constexpr (kB) {
+              if (u) bp = a.b + c * half + size_t(p) * plane + gofs[i][j];
+            }
+            T dp = point_dp<T, kMaf, kB>(wk, wij, wj[j], zm, zp, sp ? other : o0,
+                                         sp ? o0 : other, op[x + 1], op[x - 1], bp, cen,
+                                         a.omega);
             dp = u ? dp : T(0);
             const T v = u ? add_rn(cen, dp) : cen;
             const bool own = k_own && own_r[i] && own_c[j];
@@ -545,7 +507,8 @@ __global__ void __launch_bounds__(kTileThreads) rb_tile_sweeps_kernel(
   fold_iterations<kTileThreads>(a, 1);
 }
 
-// Forms: 0 rows, 1 tiles (n = kTileN, a zero right-hand side).
+// Forms: 0 rows, 1 tiles (n = kTileN with a zero right-hand side; n = 1,
+// K1's single iteration, with or without one).
 constexpr int kTileN = 2;
 
 __host__ __device__ constexpr int form_threads(int form) {
@@ -553,29 +516,33 @@ __host__ __device__ constexpr int form_threads(int form) {
 }
 
 template <typename T, bool kMaf, bool kB>
-const void* form_kernel(int form) {
+const void* form_kernel(int form, int n) {
   if (form == 0)
     return reinterpret_cast<const void*>(rb_row_sweeps_kernel<T, kMaf, kB, kMaf ? 1 : 4>);
-  if (form == 1 && !kB)
-    return reinterpret_cast<const void*>(rb_tile_sweeps_kernel<T, kMaf, kTileN>);
+  if (form == 1 && n == 1)
+    return reinterpret_cast<const void*>(rb_tile_sweeps_kernel<T, kMaf, 1, kB>);
+  if (form == 1 && n == kTileN && !kB)
+    return reinterpret_cast<const void*>(rb_tile_sweeps_kernel<T, kMaf, kTileN, false>);
   return nullptr;
 }
 
-// The kernel of (form; MAF; a right-hand side).
+// The kernel of (form, n; MAF; a right-hand side); nullptr where none is
+// built.
 template <typename T>
-const void* sweeps_kernel(int form, bool maf, bool has_b) {
-  if (maf) return has_b ? form_kernel<T, true, true>(form) : form_kernel<T, true, false>(form);
-  return has_b ? form_kernel<T, false, true>(form) : form_kernel<T, false, false>(form);
+const void* sweeps_kernel(int form, int n, bool maf, bool has_b) {
+  if (maf)
+    return has_b ? form_kernel<T, true, true>(form, n) : form_kernel<T, true, false>(form, n);
+  return has_b ? form_kernel<T, false, true>(form, n) : form_kernel<T, false, false>(form, n);
 }
 
 // CTAs of the kernel co-resident on the card at ``smem`` bytes of dynamic
 // shared memory each (the cooperative launch's limit).  Raises the
 // kernel's dynamic shared-memory limit to what the card allows first.
 template <typename T>
-int max_blocks(int form, int maf, int has_b, int smem, int device, int* out) {
+int max_blocks(int form, int n, int maf, int has_b, int smem, int device, int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const void* k = sweeps_kernel<T>(form, maf != 0, has_b != 0);
+  const void* k = sweeps_kernel<T>(form, n, maf != 0, has_b != 0);
   if (k == nullptr) return cudaErrorInvalidValue;
   int optin = 0, sms = 0, per_sm = 0;
   cudaFuncAttributes attr;
@@ -621,9 +588,8 @@ int launch_sweeps(void* const* ptrs, const int* iargs, double omega, void* strea
   a.tiles_j = iargs[9];
   a.kchunk = iargs[10];
   a.nwork = iargs[11];
-  const void* k = sweeps_kernel<T>(form, a.tab != nullptr, a.b != nullptr);
-  if (k == nullptr || a.n < 1 || a.n > kMaxN || grid < 1 || (form != 0 && a.n != kTileN))
-    return cudaErrorInvalidValue;
+  const void* k = sweeps_kernel<T>(form, a.n, a.tab != nullptr, a.b != nullptr);
+  if (k == nullptr || a.n < 1 || a.n > kMaxN || grid < 1) return cudaErrorInvalidValue;
   if (form != 0 && (grid > a.nwork || a.tj + 4 * a.n + kVec<T> - 1 > kRow ||
                     a.ti + 2 * (a.n + 1) > kRegionRows))
     return cudaErrorInvalidValue;
@@ -631,21 +597,6 @@ int launch_sweeps(void* const* ptrs, const int* iargs, double omega, void* strea
   e = cudaLaunchCooperativeKernel(k, dim3(grid), dim3(form_threads(form)), args, size_t(smem),
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-template <typename T>
-int launch_color(void* x, const void* b, const void* tab, void* partials,
-                 int K, int I2, int J, int colour, int offset, double omega,
-                 unsigned n_cells, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  const unsigned nblocks = (n_cells + kThreads - 1) / kThreads;
-  auto kernel = tab != nullptr ? rb_color_kernel<T, true> : rb_color_kernel<T, false>;
-  kernel<<<nblocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(x), static_cast<const T*>(b), static_cast<const T*>(tab),
-      static_cast<T*>(partials), K, I2, J, colour, offset,
-      T(omega), n_cells);
   return cudaGetLastError();
 }
 
@@ -659,26 +610,14 @@ const char* cz_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-int cz_rb_color_f32(void* x, const void* b, const void* tab, void* partials,
-                    int K, int I2, int J, int colour, int offset, double omega,
-                    unsigned n_cells, int device, void* stream) {
-  return launch_color<float>(x, b, tab, partials, K, I2, J, colour, offset,
-                             omega, n_cells, device, stream);
+int cz_rbn_max_blocks_f32(int form, int n, int maf, int has_b, int smem, int device,
+                          int* out) {
+  return max_blocks<float>(form, n, maf, has_b, smem, device, out);
 }
 
-int cz_rb_color_f64(void* x, const void* b, const void* tab, void* partials,
-                    int K, int I2, int J, int colour, int offset, double omega,
-                    unsigned n_cells, int device, void* stream) {
-  return launch_color<double>(x, b, tab, partials, K, I2, J, colour, offset,
-                              omega, n_cells, device, stream);
-}
-
-int cz_rbn_max_blocks_f32(int form, int maf, int has_b, int smem, int device, int* out) {
-  return max_blocks<float>(form, maf, has_b, smem, device, out);
-}
-
-int cz_rbn_max_blocks_f64(int form, int maf, int has_b, int smem, int device, int* out) {
-  return max_blocks<double>(form, maf, has_b, smem, device, out);
+int cz_rbn_max_blocks_f64(int form, int n, int maf, int has_b, int smem, int device,
+                          int* out) {
+  return max_blocks<double>(form, n, maf, has_b, smem, device, out);
 }
 
 int cz_rbn_sweeps_f32(void* const* ptrs, const int* iargs, double omega, void* stream) {

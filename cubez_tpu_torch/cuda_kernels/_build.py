@@ -59,7 +59,6 @@ def _nvcc() -> str:
 
 def _declare(lib):
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    u32 = ctypes.c_uint
     pvp, pi32 = ctypes.POINTER(vp), ctypes.POINTER(i32)
     lib.cz_threads_per_block.argtypes = []
     lib.cz_threads_per_block.restype = i32
@@ -73,12 +72,10 @@ def _declare(lib):
     lib.cz_dist_max_blocks.restype = i32
     for t in ("f32", "f64"):
         for name, args in (
-            # rbpack.cu
-            ("rb_color", [vp, vp, vp, vp, i32, i32, i32, i32, i32, f64, u32,
-                          i32, vp]),
-            # (form, maf, has_b, smem, device, out); (ptrs, iargs, omega,
-            # stream)
-            ("rbn_max_blocks", [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]),
+            # rbpack.cu: (form, n, maf, has_b, smem, device, out); (ptrs,
+            # iargs, omega, stream)
+            ("rbn_max_blocks", [i32, i32, i32, i32, i32, i32,
+                                ctypes.POINTER(i32)]),
             ("rbn_sweeps", [pvp, pi32, f64, vp]),
             # sweeps.cu (K4: kind, n, maf, aligned, smem, device, out)
             ("k4_max_blocks", [i32, i32, i32, i32, i32, i32, ctypes.POINTER(i32)]),
@@ -103,6 +100,9 @@ def _declare(lib):
             # pcr.cu (K10) and dist_pcr.cu (K9)
             ("fused_pcr", [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
                            i32, f64, i32, i32, i32, i32, vp]),
+            # (slabs, maf, smem, device, out); (ptrs, iargs, omega, stream)
+            ("pcr_lines_max_blocks", [i32, i32, i32, i32, ctypes.POINTER(i32)]),
+            ("pcr_lines", [pvp, pi32, f64, vp]),
             ("block_pcr", [pvp, pi32, f64, vp, vp]),
         ):
             fn = getattr(lib, f"cz_{name}_{t}")

@@ -9,29 +9,29 @@ package's map, rbpack.py:64-85).  Shape (2, K, I/2, J), J contiguous.  The
 TPU tile padding and the K pad of 2 are dropped: the kernels mask on the
 true bounds and never read outside the array.
 
-Two kernels carry every builder (csrc/rbpack.cu):
-
-* ``rb_color``: one colour of one iteration, in place (K1, the single
-  packed sweep, is two launches: red, then black);
-* ``rb_sweeps_n``: n full iterations in one cooperative launch, with an
-  optional right-hand side (K2, the pair, is n = 2 with b; K3, the window
-  chain, is n >= 3 without), OUT OF PLACE: it reads x and writes every
-  point of ``out``.  ``tile_plan`` picks its form from the field's size:
-  'tile', one pass over the field for n = ``TILE_N`` iterations with a
-  zero b on shared-memory tiles, where x and out overflow the L2, else
-  'rows', the 2n colour passes with grid-wide syncs between them.
+One launch carries every builder (csrc/rbpack.cu): n full iterations in
+one cooperative launch, with an optional right-hand side, OUT OF PLACE: it
+reads x and writes every point of ``out``, and folds each iteration's
+residual on the card.  K1, the single packed sweep, is n = 1
+(``rb_single``: both colours in one launch); K2, the pair, n = 2 with b;
+K3, the window chain, n >= 3 without (``rb_sweeps_n``).  ``tile_plan``
+picks the form from the field's size: 'tile', one pass over the field on
+shared-memory tiles (n = ``TILE_N`` with a zero b, or n = 1 with or
+without one), where x and out pass ``TILE_BYTES`` (``SINGLE_TILE_BYTES``
+for n = 1), else 'rows', the 2n colour passes with grid-wide syncs
+between them.
 
 Both take the MAF (variable-coefficient) update too: ``maf_tables`` gives
 the per-axis weight vectors, which the kernels index by the physical i of
 each packed point (the fold only mixes the I tables).
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything it
-cannot take; for a CPU tensor it runs the plain twin, ``rb_color_plain`` /
-``packed_sweeps_plain``, which computes the same per-point arithmetic
-(bitwise equal in float32; see ``_fma`` and the contracts below).  The
-single sweep updates the packed state in place; the n-iteration steps own
-two states and alternate between them, so the state they are handed (the
-start, or the driver's snapshot) is only read.
+cannot take; for a CPU tensor it runs the plain twin,
+``packed_sweeps_plain`` (n iterations of two ``rb_color_plain`` colours),
+which computes the same per-point arithmetic (bitwise equal in float32;
+see ``_fma`` and the contracts below).  Every step, the single sweep
+included, owns two states and alternates between them, so the state it is
+handed (the start, or the driver's snapshot) is only read.
 
 Arithmetic contracts (those of the JAX package's interpreted kernels, where
 XLA on the CPU contracts some products into fused multiply-adds):
@@ -225,9 +225,10 @@ def colour_update(xp, bp, colour: int, omega: float, offset: int = 0,
 
 def rb_color_plain(xp, bp, colour: int, omega: float, offset: int = 0,
                    tab=None):
-    """Plain PyTorch twin of ``rb_color``: update colour ``colour`` of the
-    packed state ``xp`` in place; return its sum of dp^2 (float64, 0-d).
-    ``tab`` (``maf_tables``) selects the MAF update."""
+    """One colour of one red-black iteration, the plain PyTorch half of
+    the kernels' twin: update colour ``colour`` of the packed state ``xp``
+    in place; return its sum of dp^2 (float64, 0-d).  ``tab``
+    (``maf_tables``) selects the MAF update."""
     cen, upd, sel = colour_update(xp, bp, colour, omega, offset, tab)
     I2 = xp.shape[2]
     i2 = torch.arange(I2, device=xp.device)[None, :, None]
@@ -306,33 +307,6 @@ def count(fn, tab):
     fn.maf_launches += tab is not None
 
 
-def rb_color(xp, bp, colour: int, omega: float, offset: int = 0, tab=None):
-    """Launch ``rb_color_kernel``: colour ``colour`` of one iteration, in
-    place; ``tab`` (``maf_tables``) selects the MAF form.  Returns the
-    float64 sum of dp^2 (0-d, on the device).  A CPU tensor runs the plain
-    twin."""
-    if not xp.is_cuda:
-        return rb_color_plain(xp, bp, colour, omega, offset, tab)
-    _check(xp, bp, tab)
-    lib = _build.load()
-    cells = _cells(xp)
-    if not cells:
-        return torch.zeros((), dtype=torch.float64, device=xp.device)
-    nblocks = -(-cells // lib.cz_threads_per_block())
-    # per-block sums of dp^2, in the field's dtype
-    partials = torch.empty(nblocks, dtype=xp.dtype, device=xp.device)
-    _, K, I2, J = xp.shape
-    rc = getattr(lib, f"cz_rb_color_{_SUFFIX[xp.dtype]}")(
-        xp.data_ptr(), ptr(bp), ptr(tab), partials.data_ptr(), K, I2, J,
-        colour, offset, omega, cells, xp.device.index, stream(xp),
-    )
-    _build.check(rc, "rb_color")
-    count(rb_color, tab)
-    return partials.sum(dtype=torch.float64)
-
-
-rb_color.launches = rb_color.maf_launches = 0
-
 # --------------------------------------------------------------------------
 # the n-iteration launch: its plan and launcher
 # --------------------------------------------------------------------------
@@ -340,7 +314,8 @@ rb_color.launches = rb_color.maf_launches = 0
 FORMS = ("rows", "tile")
 # csrc/rbpack.cu: cells of a region row in shared memory, region rows at
 # most, planes of x in flight, iterations a launch at most, threads of a
-# CTA of each form, the n the tile kernel is built for (kTileN)
+# CTA of each form, the n the tile kernel is built for with a zero b
+# (kTileN; it is also built for n = 1, K1, with or without b)
 ROW = 64
 REGION_ROWS = 32
 AHEAD = 2
@@ -358,6 +333,19 @@ TILE_N = 2
 L2_BYTES = 50 * 2**20
 TILE_BYTES = {(False, 4): L2_BYTES, (False, 8): L2_BYTES,
               (True, 4): 512 * 2**20, (True, 8): None}
+# the same switch for K1's single iteration (n = 1), by (MAF, itemsize, a
+# right-hand side): x and out together past these bytes take the one-pass
+# tile form, else the two colour passes of the row form; None: never
+# (tools/prof_rbpack.py --single, H100 80GB HBM3 at 700 W, device us an
+# iteration, rows / tiles).  Constant coefficients with a zero b switch at
+# the L2: f32 128^3 15.6 / 24.7, 256^3 94.3 / 85.3, 512^3 669.1 /
+# 623.4-630.6; f64 128^3 20.3-20.4 / 27.4-27.5, 256^3 170.7-171.0 /
+# 125.7-127.2.  With a streamed b the rows won everywhere (512^3 f32 1215 /
+# 1871-1922), and with MAF (512^3 f32 1084-1085 / 1170-1178; f64
+# 1434-1440 / 1526-1531).
+SINGLE_TILE_BYTES = {(maf, size, has_b): None if maf or has_b else L2_BYTES
+                     for maf in (False, True) for size in (4, 8)
+                     for has_b in (False, True)}
 # iterations a call of the zero-b chain (tools/prof_rbpack.py --depths, H100
 # 80GB HBM3 at 700 W): the row form gains a little with n (128^3: 15.4 us an
 # iteration at n = 2, 13.1 at n = 6), and the tile form runs n = TILE_N
@@ -429,13 +417,20 @@ class RbPlan:
                 (max(j0 - hc, 0), min(j1 + hc, J)))
 
 
+def tile_built(n: int, has_b: bool) -> bool:
+    """True where the tile kernel is built for n iterations (with b):
+    n = ``TILE_N`` with a zero right-hand side, and n = 1 (K1)."""
+    return n == 1 or (n == TILE_N and not has_b)
+
+
 def tile_plan(shape, n: int, itemsize: int = 4, has_b: bool = False,
               maf: bool = False, *, slots: int | None = None,
               sms: int = 132) -> RbPlan:
     """The plan of an ``rb_sweeps_n`` launch of n iterations on the packed
     state of physical ``shape``: 'tile' where the tile kernel runs the
-    launch (n = ``TILE_N``, a zero right-hand side) and x and out together
-    pass ``TILE_BYTES`` for ``maf`` and ``itemsize``, else 'rows'.
+    launch (``tile_built``) and x and out together pass ``TILE_BYTES``
+    (n = 1: ``SINGLE_TILE_BYTES``) for ``maf``, ``itemsize`` and b, else
+    'rows'.
     Measured on an H100 80GB HBM3 at 700 W (tools/prof_rbpack.py
     --depths): at 512^3 the tiles take 412 us an iteration against the
     rows' 669 (MAF 882 against 1082), at 128^3 18.5 against 12.9; with a
@@ -454,16 +449,17 @@ def tile_plan(shape, n: int, itemsize: int = 4, has_b: bool = False,
     form, rows, kchunk = (_force_plan.get(k)
                           for k in ("form", "rows", "kchunk"))
     if form is None:
-        most = TILE_BYTES[bool(maf), itemsize]
-        tiles = n == TILE_N and not has_b and most is not None
+        most = (SINGLE_TILE_BYTES[bool(maf), itemsize, bool(has_b)] if n == 1
+                else TILE_BYTES[bool(maf), itemsize])
+        tiles = tile_built(n, has_b) and most is not None
         form = "tile" if tiles and 2 * K * I * J * itemsize > most else "rows"
     if form not in FORMS:
         raise ValueError(f"form must be one of {FORMS}, not {form!r}")
     if form == "rows":
         return RbPlan("rows", tuple(shape), n)
-    if n != TILE_N or has_b:
+    if not tile_built(n, has_b):
         raise ValueError(f"the tile kernel runs n = {TILE_N} with a zero "
-                         f"right-hand side, not n = {n}"
+                         f"right-hand side or n = 1, not n = {n}"
                          + (" with b" if has_b else ""))
     hr, hc = n + 1, 2 * n
     # x's two colours (three planes in use, AHEAD in flight), two planes
@@ -508,12 +504,12 @@ def chain_depth(shape, dtype=torch.float32, maf: bool = False) -> int:
 _MAX_BLOCKS: dict = {}
 
 
-def _max_blocks(fi, maf, has_b, smem, x) -> int:
-    key = (fi, maf, has_b, smem, x.dtype, x.get_device())
+def _max_blocks(fi, n, maf, has_b, smem, x) -> int:
+    key = (fi, n, maf, has_b, smem, x.dtype, x.get_device())
     if key not in _MAX_BLOCKS:
         cnt = ctypes.c_int(0)
         rc = getattr(_build.load(), f"cz_rbn_max_blocks_{_SUFFIX[x.dtype]}")(
-            fi, int(maf), int(has_b), smem, x.get_device(), cnt)
+            fi, n, int(maf), int(has_b), smem, x.get_device(), cnt)
         _build.check(rc, "rb_sweeps_n occupancy")
         if cnt.value < 1:
             raise RuntimeError(f"rb_sweeps_n form {fi}: no CTA fits an SM")
@@ -541,13 +537,16 @@ class RbSweeps:
     float64 r2 in a buffer of the launcher's that holds until its next
     call.  The plan, the partials and the ctypes arguments (for each set of
     field pointers) are built once; ``plan`` and ``grid`` tell what it
-    launches.  It counts its launches on ``rb_sweeps_n`` (and by form, MAF
-    and b in ``rb_sweeps_n.variant_launches``)."""
+    launches.  It counts its launches on ``counter`` (``rb_sweeps_n``, or
+    ``rb_single`` for K1's steps), and by form, MAF and b in
+    ``counter.variant_launches``."""
 
-    def __init__(self, n: int, omega: float, offset: int = 0, tab=None):
+    def __init__(self, n: int, omega: float, offset: int = 0, tab=None,
+                 counter=None):
         if not 1 <= n <= MAX_N:
             raise ValueError(f"rb_sweeps_n runs n in 1..{MAX_N}, not {n}")
         self.n, self.omega, self.offset, self.tab = n, omega, offset, tab
+        self.counter = rb_sweeps_n if counter is None else counter
         self._key = None  # (shape, dtype, device, b given) of the buffers
         self._args = {}
         self.plan = self.grid = None
@@ -563,7 +562,7 @@ class RbSweeps:
         kw = dict(itemsize=x.element_size(), has_b=b is not None, maf=maf)
         plan = tile_plan(shape, self.n, sms=sms, **kw)
         fi = FORMS.index(plan.form)
-        slots = _max_blocks(fi, maf, b is not None, plan.smem, x)
+        slots = _max_blocks(fi, self.n, maf, b is not None, plan.smem, x)
         if plan.form == "tile":
             # as many k chunks as the co-resident CTAs take in one round
             plan = tile_plan(shape, self.n, slots=slots, **kw)
@@ -603,9 +602,10 @@ class RbSweeps:
         _build.check(self._fn(args, self._ints, self.omega,
                               current_stream(x.get_device())),
                      f"rb_sweeps_n {self.plan.form}")
-        count(rb_sweeps_n, self.tab)
+        c = self.counter
+        count(c, self.tab)
         key = (self.plan.form, self.tab is not None, b is not None)
-        rb_sweeps_n.variant_launches[key] = rb_sweeps_n.variant_launches.get(key, 0) + 1
+        c.variant_launches[key] = c.variant_launches.get(key, 0) + 1
         return self._r2
 
 
@@ -637,6 +637,32 @@ rb_sweeps_n.launches = rb_sweeps_n.maf_launches = 0
 rb_sweeps_n.variant_launches = {}
 
 
+def rb_single(xp, bp, omega: float, offset: int = 0, tab=None, out=None):
+    """K1: one red-black iteration, both colours in one launch of the
+    form ``tile_plan`` picks at n = 1, from ``xp`` into ``out`` (never
+    ``xp``); with ``out`` None the result is copied back into ``xp``.
+    ``tab`` selects the MAF form.  Returns the 0-d float64 sum of dp^2 (on
+    the device).  A CPU tensor runs the plain twin, two ``rb_color_plain``
+    colours."""
+    if not xp.is_cuda:
+        dst = xp if out is None else out_for(xp, out).copy_(xp)
+        return packed_sweeps_plain(dst, bp, 1, omega, offset, tab)[1][0]
+    _check(xp, bp, tab)
+    dst = out_for(xp, out)
+    if not _cells(xp):
+        dst.copy_(xp)
+        r2 = torch.zeros(1, dtype=torch.float64, device=xp.device)
+    else:
+        r2 = RbSweeps(1, omega, offset, tab, rb_single)(xp, bp, dst)
+    if out is None:
+        xp.copy_(dst)
+    return r2[0]
+
+
+rb_single.launches = rb_single.maf_launches = 0
+rb_single.variant_launches = {}
+
+
 # --------------------------------------------------------------------------
 # builders (the JAX package's names and step contract)
 # --------------------------------------------------------------------------
@@ -663,26 +689,21 @@ def _attach(step, shape, offset, ipc, single=None):
 def make_packed_sweep(shape, dtype=torch.float32, *, omega: float,
                       offset: int = 0, b_is_zero: bool = False, mc=None,
                       plain: bool = False):
-    """``step(xp, bp) -> (xp, r2)``: one red-black iteration (two
-    ``rb_color`` launches), r2 a 0-d float64 tensor.  ``mc`` (MafCoeffs)
-    selects the MAF update.  None for odd I.  ``plain`` runs the twin on
-    any device."""
+    """``step(xp, bp) -> (xp_new, r2)``: one red-black iteration in one
+    launch (``rb_single``: both colours, the residual folded on the card),
+    r2 a 0-d float64 tensor.  As the n-iteration steps, it returns one of
+    two states it owns (the one that is not ``xp``) and only reads ``xp``,
+    so the driver's replay from its snapshot never writes the snapshot.
+    ``mc`` (MafCoeffs) selects the MAF update.  None for odd I.  ``plain``
+    runs the twin on any device."""
     if _refuses(shape, dtype):
         return None
-    tab = maf_tables(mc, shape, dtype)
-    red_black = rb_color_plain if plain else rb_color
-
-    def step(xp, bp):
-        b = None if b_is_zero else bp
-        r2 = red_black(xp, b, 0, omega, offset, tab)
-        return xp, r2 + red_black(xp, b, 1, omega, offset, tab)
-
-    return _attach(step, shape, offset, 1)
+    return _make_n(shape, dtype, omega, 1, offset, b_is_zero, plain, mc)
 
 
 def _make_n(shape, dtype, omega, n, offset, b_is_zero, plain, mc):
     tab = maf_tables(mc, shape, dtype)
-    launch = RbSweeps(n, omega, offset, tab)
+    launch = RbSweeps(n, omega, offset, tab, rb_single if n == 1 else None)
     bufs = []  # the two states the step alternates between
 
     def step(xp, bp):
@@ -694,13 +715,18 @@ def _make_n(shape, dtype, omega, n, offset, b_is_zero, plain, mc):
         out = bufs[1] if xp.data_ptr() == bufs[0].data_ptr() else bufs[0]
         if plain or not xp.is_cuda:
             out.copy_(xp)
-            return out, packed_sweeps_plain(out, b, n, omega, offset, tab)[1]
-        if not _cells(xp):
-            return out, rb_sweeps_n(xp, b, n, omega, offset, tab, out=out)
-        return out, launch(xp, b, out)
+            r2 = packed_sweeps_plain(out, b, n, omega, offset, tab)[1]
+        elif not _cells(xp):
+            out.copy_(xp)
+            r2 = torch.zeros(n, dtype=torch.float64, device=xp.device)
+        else:
+            r2 = launch(xp, b, out)
+        return out, r2[0] if n == 1 else r2
 
-    single = make_packed_sweep(shape, dtype, omega=omega, offset=offset,
-                               b_is_zero=b_is_zero, mc=mc, plain=plain)
+    single = None
+    if n > 1:
+        single = make_packed_sweep(shape, dtype, omega=omega, offset=offset,
+                                   b_is_zero=b_is_zero, mc=mc, plain=plain)
     step = _attach(step, shape, offset, n, single)
     step.launcher = launch
     return step

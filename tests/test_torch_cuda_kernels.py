@@ -30,7 +30,7 @@ def dev():
     return torch.device("cuda", 0)
 
 
-WRAPPERS = (rb.rb_color, rb.rb_sweeps_n, k4.jacobi_k4, k4.sor2sma_k4,
+WRAPPERS = (rb.rb_single, rb.rb_sweeps_n, k4.jacobi_k4, k4.sor2sma_k4,
             k5.rbl, k6.line_j, k6.line_rb)
 
 
@@ -110,7 +110,7 @@ def test_solve_on_cuda_matches_cpu_twin(dev):
 def test_wrappers_refuse_what_they_cannot_take(dev):
     x = rb.pack_rb(torch.zeros(8, 8, 8, device=dev))
     with pytest.raises(TypeError):
-        rb.rb_color(x.half(), None, 0, OMEGA)
+        rb.rb_single(x.half(), None, OMEGA)
     with pytest.raises(ValueError, match="contiguous"):
         rb.rb_sweeps_n(x.transpose(2, 3), None, 2, OMEGA)
     with pytest.raises(ValueError, match="b must match"):
@@ -132,7 +132,8 @@ def test_rb_sweeps_forms_match_plain_twin(dev, shape, dtype, setting,
     """Both forms of rb_sweeps_n (the tile form also at forced small
     regions and k chunks, so that a CTA takes several work items) against
     the twin: constant and MAF, zero and streamed b (the row form), n = 1,
-    2, 3, 6 (the tile form: its n), offsets 0 and 1.  ``out`` is poisoned
+    2, 3, 6 (the tile form: its n with a zero b, and n = 1, K1's launch,
+    with both), offsets 0 and 1.  ``out`` is poisoned
     with NaN, so every point must be written; x is never written; float32
     bitwise, float64 within 1e-14, residuals to rtol 1e-5."""
     form, rows, kchunk = setting
@@ -144,8 +145,9 @@ def test_rb_sweeps_forms_match_plain_twin(dev, shape, dtype, setting,
     b = rb.pack_rb(torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
     mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype, device=dev)[0].mc
     tol = 0.0 if dtype == torch.float32 else 1e-14
-    cases = [(n, maf, bb) for n in ((1, 2, 3, 6) if form == "rows" else (rb.TILE_N,))
-             for maf in (False, True) for bb in ((None, b) if form == "rows" else (None,))]
+    cases = [(n, maf, bb) for n in ((1, 2, 3, 6) if form == "rows" else (1, rb.TILE_N))
+             for maf in (False, True)
+             for bb in ((None, b) if form == "rows" or n == 1 else (None,))]
     for n, maf, bb in cases:
         tab = rb.maf_tables(mc, shape, dtype) if maf else None
         for offset in (0, 1):
@@ -162,6 +164,81 @@ def test_rb_sweeps_forms_match_plain_twin(dev, shape, dtype, setting,
             assert bool(torch.isfinite(out).all()), where
             assert float((out - xp).abs().max()) <= tol, where
             torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("form", rb.FORMS)
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("with_b", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_single_step_is_one_launch_an_iteration(dev, form, maf, with_b, dtype,
+                                                monkeypatch):
+    """K1 (make_packed_sweep) in each form: one rb_single launch a call
+    (both colours and the fold), the field the twin's two colours (float32
+    bitwise, float64 within 1e-14) at offsets 0 and 1, the handed field
+    never written, out poisoned with NaN fully written, and a repeated
+    run's r2 bit for bit."""
+    monkeypatch.setattr(rb, "_force_plan", {"form": form})
+    for shape in ((16, 16, 16), (37, 22, 45), (6, 10, 9)):
+        K, I, J = shape
+        mc = None
+        if maf:
+            mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                                    device=dev)[0].mc
+        gen = torch.Generator().manual_seed(K + I + J)
+        x = rb.pack_rb(torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+        b = rb.pack_rb(torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+        for offset in (0, 1):
+            kw = dict(omega=OMEGA, offset=offset, b_is_zero=not with_b, mc=mc)
+            step = rb.make_packed_sweep(shape, dtype, **kw)
+            twin = rb.make_packed_sweep(shape, dtype, plain=True, **kw)
+            keep = x.clone()
+            step(x, b)  # its buffers, then poison the one the next call writes
+            before = (rb.rb_single.launches, rb.rb_sweeps_n.launches)
+            y, r = step(x, b)
+            y.fill_(float("nan"))
+            y, r = step(x, b)
+            yp, rp = twin(x.clone(), b)
+            torch.cuda.synchronize()
+            where = (shape, offset, step.launcher.plan.form)
+            assert step.launcher.plan.form == form
+            assert (rb.rb_single.launches, rb.rb_sweeps_n.launches) == (
+                before[0] + 2, before[1]), where
+            assert torch.equal(x, keep), where
+            assert bool(torch.isfinite(y).all()), where
+            tol = 0.0 if dtype == torch.float32 else 1e-14
+            assert float((y - yp).abs().max()) <= tol, where
+            torch.testing.assert_close(r, rp, rtol=1e-5, atol=0)
+            assert torch.equal(step(x, b)[1], r)
+
+
+def test_single_plan_picks_the_tiles_beyond_the_l2(dev):
+    """At 256^3 f32 the single step takes the tile form (one pass a
+    launch), the twin's field."""
+    shape = (256, 256, 256)
+    step = rb.make_packed_sweep(shape, torch.float32, omega=OMEGA, b_is_zero=True)
+    x = rb.pack_rb(torch.rand(shape, device=dev) * 2 - 1)
+    y, r2 = step(x, None)
+    want, rp = rb.make_packed_sweep(shape, torch.float32, omega=OMEGA,
+                                    b_is_zero=True, plain=True)(x.clone(), None)
+    torch.cuda.synchronize()
+    assert step.launcher.plan.form == "tile"
+    assert torch.equal(y, want)
+    torch.testing.assert_close(r2, rp, rtol=1e-5, atol=0)
+
+
+def test_solve_replays_through_the_single_launch(dev):
+    """The 32^3 solve stops at 199 with the CPU twin's field, its stopping
+    chunk replayed by rb_single launches from the snapshot."""
+    g = czt.Problem.poisson_cube(32, device=dev)
+    before = rb.rb_single.launches
+    rg = czt.solve(g, "sor2sma", omega=OMEGA, itr_max=10000)
+    rc = czt.solve(czt.Problem.poisson_cube(32, device="cpu"), "sor2sma",
+                   omega=OMEGA, itr_max=10000)
+    assert rg.iters == rc.iters == 199
+    # chunks of 18 (check_every 16 in calls of 6): the stopping one starts
+    # at 198, and one single iteration replays it to 199
+    assert rb.rb_single.launches - before == 1
+    assert torch.equal(rg.x.cpu(), rc.x)
 
 
 def test_rb_sweeps_plan_picks_the_tiles_beyond_the_l2(dev):
@@ -626,11 +703,19 @@ def test_solve_dist_on_cuda_matches_cpu_twin(dev, solver, sync, omega, iters):
 # ---- slice 9b: K9 (dist_pcr) and K10 (pcr) ----------------------------------
 
 
+# K10's line form at its slab edges (K - 2 = 1, 2, 31, 32, 33, 63, 126,
+# 510 rows; odd and ragged I and J), and a line past the registers (the
+# tile form)
+K10_SHAPES = [(16, 16, 16), (13, 11, 18), (3, 9, 40), (4, 8, 7), (33, 10, 35),
+              (34, 7, 33), (35, 12, 66), (65, 9, 12), (128, 6, 37), (512, 5, 6),
+              (600, 5, 9)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("with_b", [False, True])
 @pytest.mark.parametrize("maf", [False, True])
 @pytest.mark.parametrize("color", [0, 1, None])
-@pytest.mark.parametrize("shape", [(16, 16, 16), (13, 11, 18)])
+@pytest.mark.parametrize("shape", K10_SHAPES)
 def test_k10_matches_plain_twin(dev, shape, color, maf, with_b, dtype):
     """K10 against its twin (offset 1): float32 bitwise, float64 within
     1e-14, residuals to rtol 1e-5; the line-Jacobi pass never writes x."""
@@ -656,6 +741,50 @@ def test_k10_matches_plain_twin(dev, shape, color, maf, with_b, dtype):
     assert torch.equal(x, keep)
     assert float((xk - xp).abs().max()) <= (0.0 if dtype == torch.float32 else 1e-14)
     torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("kind", ["pcr_rb", "pcr"])
+@pytest.mark.parametrize("shape", [(16, 16, 16), (35, 12, 66), (600, 5, 9)])
+def test_k10_step_one_launch_a_call(dev, shape, kind, maf, dtype):
+    """make_fused_pcr_step on the line form makes one launch a call (pcr_rb:
+    both colours, a grid-wide sync between them), the tile form one a
+    colour; the fields are the twin's passes (float32 bitwise, float64
+    within 1e-14), 'pcr' never writes x, and r2 repeats bit for bit."""
+    from cubez_tpu_torch.cuda_kernels import pcr as k10
+
+    K, I, J = shape
+    mc = None
+    if maf:
+        mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                                device=dev)[0].mc
+    tab = k10.maf_tables(mc, shape, dtype) if maf else None
+    gen = torch.Generator().manual_seed(K)
+    x = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    b = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    step = k10.make_fused_pcr_step(kind, shape, dtype, omega=OMEGA, offset=1,
+                                   mc=mc)
+    keep = x.clone()
+    before = k10.fused_pcr.launches
+    xk, rk = step(x if kind == "pcr" else x.clone(), b)
+    torch.cuda.synchronize()
+    lines = step.launcher.plan.form == "lines"
+    assert lines == (K - 2 <= 512)
+    assert k10.fused_pcr.launches - before == (1 if lines or kind == "pcr" else 2)
+    if kind == "pcr":
+        xp, rp = k10.fused_pcr_plain(keep.clone(), b, OMEGA, None, 1, tab)
+    else:
+        xp, r0 = k10.fused_pcr_plain(keep.clone(), b, OMEGA, 0, 1, tab)
+        xp, r1 = k10.fused_pcr_plain(xp, b, OMEGA, 1, 1, tab)
+        rp = r0 + r1
+    assert torch.equal(x, keep)
+    assert float((xk - xp).abs().max()) <= (0.0 if dtype == torch.float32 else 1e-14)
+    torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+    r_first = rk.clone()
+    _, again = step(x if kind == "pcr" else keep.clone(), b)
+    assert torch.equal(again, r_first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -182,10 +182,13 @@ def test_wrappers_run_the_twin_on_cpu_without_launching():
     xa = trb.pack_rb(torch.tensor(x))
     bb = trb.pack_rb(torch.tensor(b))
     xb = xa.clone()
-    before = (trb.rb_color.launches, trb.rb_sweeps_n.launches)
-    ra = trb.rb_color(xa, bb, 0, OMEGA) + trb.rb_color(xa, bb, 1, OMEGA)
+    before = (trb.rb_single.launches, trb.rb_sweeps_n.launches)
+    ra = trb.rb_single(xa, bb, OMEGA)
     rn = trb.rb_sweeps_n(xb, bb, 1, OMEGA)
-    assert (trb.rb_color.launches, trb.rb_sweeps_n.launches) == before
+    assert (trb.rb_single.launches, trb.rb_sweeps_n.launches) == before
     assert torch.equal(xa, xb) and float(ra) == float(rn[0])
+    xc = trb.pack_rb(torch.tensor(x))
+    rc = trb.rb_color_plain(xc, bb, 0, OMEGA) + trb.rb_color_plain(xc, bb, 1, OMEGA)
+    assert torch.equal(xa, xc) and float(ra) == float(rc)
     with pytest.raises(ValueError, match="CUDA"):
         trb._check(xa, None)

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Profile the packed red-black paths (K2 and K3) on one NVIDIA GPU,
+"""Profile the packed red-black paths (K1, K2 and K3) on one NVIDIA GPU,
 float32: per iteration the wall, the device time, the device launches, the
 busy share and the kernels' device microseconds a launch; with
 ``--solves``, one whole solve each.
 
-    python3 tools/prof_rbpack.py [--solves] [--depths] [--sass]
+    python3 tools/prof_rbpack.py [--solves] [--depths] [--single] [--sass]
                                  [--out DIR] [path ...]
 
 Paths (their labels; names on the command line keep only those):
@@ -30,7 +30,17 @@ tile form also at forced region rows; at the sizes between (``SIZES``),
 either side of the plan's switch, and in float64 (``SIZES_F64``), the
 zero-b chain's two forms at their depths.  It prints device microseconds
 a launch and an iteration beside the plan.  This is what chooses the forms'
-depths and the plan.  ``--sass`` counts the instructions of each K2/K3
+depths and the plan.  ``--single`` times K1, the single iteration the
+driver's exact-stop replays run (``make_packed_sweep``'s step, one call an
+iteration, as the replay calls it), at 128^3, 256^3 and 512^3, float32 and
+float64, constant and MAF, with a zero and a streamed b: microseconds a
+call by CUDA events over back-to-back calls (host cost included), and
+under ``torch.profiler`` the device microseconds and device launches a
+call and the busy share; in a tree with K1's two forms, each form forced
+(``rbpack._force_plan``), which is what sets ``SINGLE_TILE_BYTES``.  It
+uses only the step's public builder, so a copy in another checkout (whose
+single sweep is two colour launches) measures that checkout.  ``--sass``
+counts the instructions of each K1/K2/K3
 kernel in the built library (``cuobjdump -sass``), and of the hot loop an
 update in the constant-coefficient forms (in a copy in another checkout,
 that checkout's kernels).
@@ -215,6 +225,67 @@ def depths(card):
     return out
 
 
+def single(card):
+    """K1's iteration: make_packed_sweep's step, by size, dtype, MAF, b and
+    form; microseconds a call by events, device time, launches and busy
+    share a call under the profiler."""
+    from cubez_tpu_torch.cuda_kernels import rbpack as rb
+
+    forms = rb.FORMS if hasattr(rb, "rb_single") else (None,)
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for size, reps, prof_n in ((128, 200, 50), (256, 50, 20), (512, 10, 5)):
+        for dtype in (torch.float32, torch.float64):
+            shape = (size,) * 3
+            x, b = (rb.pack_rb(torch.rand(shape, device="cuda", generator=gen,
+                                          dtype=dtype) * 2 - 1) for _ in range(2))
+            mc = Problem.poisson_cube(size, dtype=dtype, device="cuda",
+                                      maf=True).mc
+            for maf in (False, True):
+                for with_b in (False, True):
+                    for form in forms:
+                        name = (f"single {size}^3 "
+                                f"{'f64' if dtype == torch.float64 else 'f32'}"
+                                f"{' MAF' if maf else ''} b={'b' if with_b else '0'}"
+                                + ("" if form is None else f" {form}"))
+                        rb._force_plan = {} if form is None else {"form": form}
+                        try:
+                            step = rb.make_packed_sweep(
+                                shape, dtype, omega=OMEGA, b_is_zero=not with_b,
+                                mc=mc if maf else None)
+                            held = [x.clone()]
+
+                            def call(step=step, held=held):
+                                held[0], _ = step(held[0], b)
+                            call()  # the plan is made at the first call
+                        finally:
+                            rb._force_plan = {}
+                        us = events_us(call, reps)
+                        with torch.profiler.profile(activities=ACTS) as prof:
+                            t0 = time.perf_counter()
+                            for _ in range(prof_n):
+                                call()
+                            torch.cuda.synchronize()
+                            wall = time.perf_counter() - t0
+                        rows = device_rows(prof)
+                        dev_us = sum(r[2] for r in rows)
+                        launcher = getattr(step, "launcher", None)
+                        s = {"call_us": us, "device_us_per_call": dev_us / prof_n,
+                             "device_launches_per_call":
+                                 sum(r[1] for r in rows) / prof_n,
+                             "busy_share": dev_us / 1e6 / wall,
+                             "kernels_us_per_launch":
+                                 {r[0]: r[2] / r[1] for r in rows[:2]},
+                             "form": (launcher.plan.form if launcher is not None
+                                      else "two colour launches")}
+                        out[name] = s
+                        say(f"{name}: {json.dumps(s)} [{card}]")
+                        del step, held
+            del x, b, mc
+            torch.cuda.empty_cache()
+    return out
+
+
 def sass(card):
     """Instructions of each K2/K3 kernel's SASS in the built library, and
     of its constant-coefficient float32 forms an update: the smallest loop
@@ -280,17 +351,20 @@ def main(argv):
         out["sass"] = sass(card)
     if "--depths" in argv:
         out["depths"] = depths(card)
+    if "--single" in argv:
+        out["single"] = single(card)
     for label, solver, n, counts in PATHS:
         if names and not any(label.startswith(nm) for nm in names):
             continue
-        if "--depths" in argv and not names:
+        if ("--depths" in argv or "--single" in argv) and not names:
             continue
         out[label] = profile_path(card, label, solver, n, counts,
                                   "--solves" in argv)
         torch.cuda.empty_cache()
     if OUT is not None:
         (OUT / "prof_rbpack.json").write_text(json.dumps(out))
-    print(json.dumps({k: v for k, v in out.items() if k not in ("depths", "sass")}))
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("depths", "sass", "single")}))
 
 
 if __name__ == "__main__":
