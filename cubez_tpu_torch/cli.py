@@ -6,8 +6,10 @@
 
 A process division ``gdv_x gdv_y gdv_z`` (or ``--dist``, the automatic
 division) runs ``solve_dist`` over a block mesh, for every solver the port
-runs, the line solvers included: blocks go round-robin over the visible
-CUDA devices (``--device cpu``: the host).
+runs, the line solvers and the Krylov solvers included: blocks go
+round-robin over the visible CUDA devices (``--device cpu``: the host).
+``pbicgstab`` takes the preconditioner "none" unless ``precond`` names
+one, as the JAX package's CLI does.
 
 Writes ``<solver>.txt`` (cz_Evaluate.cpp:210-218), prints the iteration and
 residual banner (cz_Evaluate.cpp:492-496) and the analytic ``Error max``
@@ -90,7 +92,9 @@ def main(argv=None):
     if rest:
         print(f"unexpected trailing args: {rest}", file=sys.stderr)
         return 2
-    _, is_maf = require_ported(args.solver)  # validate early
+    kind, is_maf = require_ported(args.solver)  # validate early
+    if kind == "pbicgstab" and precond is None:
+        precond = "none"
 
     gx, gy, gz = args.gsz
     dtype = torch.float64 if args.fp64 else torch.float32
@@ -109,6 +113,8 @@ def main(argv=None):
               "device(s)")
         run = functools.partial(solve_dist, prob, cm, args.solver)
     print(f"Iterative Method = {args.solver}")
+    if kind == "pbicgstab":
+        print(f"Preconditioner = {precond}")
 
     def sync():
         if args.device == "cuda":

@@ -163,3 +163,21 @@ def sor2sma_maf_sweep(x, b, msk, omega, mc, cmasks):
     r2 = (dp * dp).sum(dtype=torch.float64)
     dp = maf_delta(x, b, msk * cmasks[1], omega, mc)
     return x + dp, r2 + (dp * dp).sum(dtype=torch.float64)
+
+
+# --- the MAF Krylov operator ------------------------------------------------
+
+
+def calc_ax_maf(p, msk, mc: MafCoeffs, pvt):
+    """ap = (weighted neighbours - dd p) * pvt (calc_ax_maf,
+    cz_blas.f90:845-936), masked."""
+    return (mc.nbr_weighted(p) - mc.dd * p) * pvt * msk
+
+
+def calc_rk_maf(p, b, msk, mc: MafCoeffs, pvt):
+    """r = (b - (weighted neighbours - dd p)) * pvt (calc_rk_maf,
+    cz_blas.f90:738-831), masked.  It solves L x = b, while the MAF point
+    sweeps take ``rp + b`` and so solve -L x = b (Problem.
+    manufactured_stretched's "krylov" and "relax" families); the sign is
+    the reference's and is kept."""
+    return (b - (mc.nbr_weighted(p) - mc.dd * p)) * pvt * msk

@@ -12,7 +12,9 @@ K8 and the line solvers (pcr_rb, pcr_rb_esa, pcr_j_esa and their MAF
 forms) on K9 (dist_fused.py); everything else the JAX package runs on its
 jnp steps, float64, the MAF point sweeps off the packed path, jacobi with
 sync='overlap' and a non-standard mask, runs on parallel/dist.py.  Every
-route drives the same convergence logic as the serial path.
+route drives the same convergence logic as the serial path.  The Krylov
+solvers run their loops on the blocks (krylov.py), with these routes for
+their preconditioner.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ import torch
 
 from ..core.problem import Problem
 from ..solvers.driver import EPS_DEFAULT, SolveResult, run_iterative
-from ..solvers.steps import require_ported
+from ..solvers.steps import KRYLOV, require_ported
 from . import dist_fused, dist_pack
 from .dist import make_dist_step
+from .krylov import solve_krylov_dist
 from .mesh import CubeMesh
 
 IMPLS = ("auto", "plain")
@@ -69,14 +72,22 @@ def solve_dist(
     float64, the MAF point sweeps off the packed path, jacobi with
     sync='overlap' and a non-standard mask run parallel/dist.py's steps,
     plain torch operations on the blocks' devices, as the JAX package runs
-    them on its jnp steps.  The Krylov solvers (slice 4) and psor/pcr_gs
-    (slice 6), which the JAX package reaches only through auto-SPMD, raise
-    NotImplementedError naming their slice.
+    them on its jnp steps.  psor and pcr_gs (slice 6), which the JAX
+    package reaches only through auto-SPMD, raise NotImplementedError
+    naming their slice.
+
+    The Krylov solvers ``pbicgstab``, ``pbicgstab_maf`` and ``cg`` run
+    bicgstab.py's and cg.py's loops on the blocks (parallel/krylov.py):
+    dots fold the blocks' partials in block order, ``ax`` and ``rk`` read
+    the neighbours through a halo exchange, and the ``precond`` sweeps take
+    this function's route for their name with the Krylov vector as b: K8
+    for jacobi and sor2sma ('color'), K9 for the line solvers, in float32
+    with the standard mask, else parallel/dist.py's steps.  ``sync`` may
+    only be 'auto' or 'color' for them.
 
     ``impl``: 'auto' launches the kernels for CUDA blocks and runs the
     plain twins for CPU blocks; 'plain' runs the twins on any device.
-    ``precond`` is accepted for signature parity and unused by these
-    solvers."""
+    ``precond`` is unused by the relaxation solvers."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     if sync not in SYNCS:
@@ -84,6 +95,14 @@ def solve_dist(
     kind, is_maf = require_ported(solver)
     g = problem.grid
     cmesh.block_shape(g.shape_kij)  # a grid the mesh does not divide
+    if kind in KRYLOV:
+        if sync not in ("auto", "color"):
+            raise ValueError(
+                f"sync={sync!r}: the Krylov preconditioner exchanges before "
+                "each colour ('color'); the packed path refuses its nonzero b")
+        result = solve_krylov_dist(problem, cmesh, solver, omega, itr_max, eps,
+                                   precond, impl)
+        return _finish(result, history_path)
     if is_maf and problem.mc is None:
         raise ValueError("MAF solver requested but Problem has no MafCoeffs")
     plain = impl == "plain"

@@ -5,6 +5,8 @@ solver dispatch of CZ::Evaluate, cz_Evaluate.cpp:414-489).
                    omega=1.5, itr_max=10000)
     result = solve(Problem.poisson_cube(128, device="cuda"), "pcr_rb",
                    omega=1.5, itr_max=10000)
+    result = solve(Problem.poisson_cube(256, device="cuda"), "pbicgstab",
+                   omega=1.1, itr_max=4000, precond="sor2sma")
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Optional
 
 from ..core.problem import Problem
 from . import steps as steps_mod
+from .bicgstab import make_bicgstab
+from .cg import make_cg
 from .driver import EPS_DEFAULT, SolveResult, run_iterative
 from .fused_cache import get_fused_step
 
@@ -47,27 +51,41 @@ def solve(
     package's n = K - 2 < 2, where no tiling fits).  The route is chosen
     from the configuration before anything launches, never on a kernel's
     failure: a CUDA kernel that fails to build or launch raises.  The
-    kernels' launch counters show that none ran.  ``precond`` is accepted
-    for signature parity and, as in the JAX package, unused by relaxation
-    solvers.  ``check_every``: see run_iterative; counts, histories
-    and the returned field do not depend on it."""
+    kernels' launch counters show that none ran.
+
+    The Krylov drivers ``pbicgstab``/``pbicgstab_maf`` (solvers/
+    bicgstab.py) and ``cg`` (solvers/cg.py) run their loop with one host
+    sync an iteration; ``precond`` names the relaxation solver of their
+    preconditioner (None or "none": none), which runs on the route this
+    function gives that name, with the Krylov vector as b.  For the
+    relaxation solvers ``precond`` is accepted for signature parity and,
+    as in the JAX package, unused.  ``check_every``: see run_iterative;
+    counts, histories and the returned field do not depend on it (the
+    Krylov loops check every iteration)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     kind, _ = steps_mod.require_ported(solver)
     mc = steps_mod.maf_coeffs(problem, solver)
     g = problem.grid
-    step = pre = post = None
-    if problem.msk_is_standard():
-        step = get_fused_step(kind, g, omega, mc=mc, plain=impl == "plain",
-                              b_is_zero=problem.rhs_is_inner_zero())
-    if step is not None:
-        pre, post = step.pad, step.unpad
+    if kind in steps_mod.KRYLOV:
+        if kind == "cg":
+            run = make_cg(problem, omega, precond, impl)
+        else:
+            run = make_bicgstab(problem, solver, omega, precond, impl)
+        result = run(problem.x0, problem.rhs, itr_max, eps, g.res_normal)
     else:
-        step = steps_mod.make_step(problem, solver, omega)
-    result = run_iterative(
-        step, problem.x0, problem.rhs, g.res_normal, itr_max, eps,
-        check_every=check_every, pre=pre, post=post,
-    )
+        step = pre = post = None
+        if problem.msk_is_standard():
+            step = get_fused_step(kind, g, omega, mc=mc, plain=impl == "plain",
+                                  b_is_zero=problem.rhs_is_inner_zero())
+        if step is not None:
+            pre, post = step.pad, step.unpad
+        else:
+            step = steps_mod.make_step(problem, solver, omega)
+        result = run_iterative(
+            step, problem.x0, problem.rhs, g.res_normal, itr_max, eps,
+            check_every=check_every, pre=pre, post=post,
+        )
     if history_path:
         result.write_history(history_path)
     return result

@@ -4,9 +4,11 @@
 The name registry is the JAX package's, verbatim (solver-name parity with
 the reference CLI, cz_Evaluate.cpp:684-803).  This port runs ``sor2sma``,
 ``jacobi``, the line solvers of kinds ``pcr_rb`` (``pcr_rb``,
-``pcr_rb_esa``) and ``pcr`` (``pcr_j_esa``), and their ``_maf`` forms;
-every other solver raises ``NotImplementedError`` naming the slice of
-ROADMAP.md that brings it.
+``pcr_rb_esa``) and ``pcr`` (``pcr_j_esa``), and their ``_maf`` forms, and
+the Krylov drivers ``pbicgstab``, ``pbicgstab_maf`` (solvers/bicgstab.py)
+and ``cg`` (solvers/cg.py) with those sweeps as preconditioners; every
+other solver, as a solver or a preconditioner, raises
+``NotImplementedError`` naming the slice of ROADMAP.md that brings it.
 """
 
 from __future__ import annotations
@@ -41,8 +43,6 @@ EXTENSION_SOLVERS = ("mg", "mg_maf", "fmg", "fmg_maf", "fd", "fd_maf", "cg")
 
 # where each solver kind lands in ROADMAP.md's queue of slices
 _SLICE = {
-    "pbicgstab": "slice 4 (Krylov)",
-    "cg": "slice 4 (Krylov)",
     "psor": "slice 6 (exact serial orders)",
     "pcr_gs": "slice 6 (exact serial orders)",
     "mg": "slice 7 (extensions)",
@@ -69,7 +69,9 @@ def parse_name(name: str):
     return _CANON[base], is_maf
 
 
-PORTED = ("sor2sma", "jacobi", "pcr", "pcr_rb")
+# the Krylov drivers: solvers, never sweeps
+KRYLOV = ("pbicgstab", "cg")
+PORTED = ("sor2sma", "jacobi", "pcr", "pcr_rb") + KRYLOV
 
 
 def require_ported(name: str):
@@ -101,8 +103,12 @@ def make_step(problem: Problem, name: str, omega: float):
     plain masked sweep of ops/stencil.py or ops/maf.py, or the line twins
     of cuda_kernels/lines.py with the mask.  It carries the problem's own
     mask, so it also serves masks other than the standard one; x is never
-    written."""
+    written.  ValueError for the Krylov drivers, which are not sweeps."""
     kind, _ = require_ported(name)
+    if kind == "pbicgstab":
+        raise ValueError("pbicgstab is a driver, not a sweep; see bicgstab.py")
+    if kind == "cg":
+        raise ValueError("cg is a driver, not a sweep; see cg.py")
     mc = maf_coeffs(problem, name)
     g = problem.grid
     msk = problem.msk

@@ -151,3 +151,24 @@ def test_cli_pcr_rb_history_matches_jax_cli(tmp_path, monkeypatch, capsys):
     tv = [float(r.split(",")[1]) for r in t[1:]]
     jv = [float(r.split(",")[1]) for r in j[1:]]
     assert max(abs(a / b - 1) for a, b in zip(tv, jv)) < 1e-3
+
+
+def test_cli_pbicgstab_defaults_to_no_preconditioner(tmp_path, monkeypatch,
+                                                     capsys):
+    """pbicgstab with no preconditioner argument runs with "none" and says
+    so after the method line (the JAX package's CLI); a named one is
+    printed as given."""
+    monkeypatch.chdir(tmp_path)
+    assert main(["16", "16", "16", "pbicgstab", "4000", "1.1",
+                 "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Iterative Method = pbicgstab\nPreconditioner = none\n" in out
+    rows = (tmp_path / "pbicgstab.txt").read_text().splitlines()
+    assert rows[0] == "Itration      Residual" and len(rows) > 2
+    assert main(["16", "16", "16", "pbicgstab", "4000", "1.1", "sor2sma",
+                 "2", "2", "2", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Preconditioner = sor2sma" in out and "Error max" in out
+    assert main(["16", "16", "16", "cg", "4000", "0.8", "jacobi",
+                 "--device", "cpu"]) == 0
+    assert "Preconditioner" not in capsys.readouterr().out

@@ -1260,3 +1260,127 @@ def test_pack_step_launches_twice_a_call(dev, maf):
         for a, b in zip(xg, xc):
             assert torch.equal(a.cpu(), b)
         torch.testing.assert_close(rg.cpu(), rc, rtol=1e-5, atol=0)
+
+
+# ---- slice 4: the Krylov solvers with their preconditioners on the kernels ---
+
+KRYLOV_CASES = [
+    # solver, preconditioner, omega, counter of its kernel
+    ("pbicgstab", "sor2sma", 1.1, "rb_sweeps_n"),
+    ("pbicgstab", "jacobi", 0.8, "jacobi_k4"),
+    ("pbicgstab", "pcr_rb", 1.1, "rbl"),
+    ("pbicgstab", "pcr_j_esa", 1.0, "line_j"),
+    ("pbicgstab_maf", "sor2sma_maf", 1.1, "rb_sweeps_n"),
+    ("cg", "jacobi", 0.8, "jacobi_k4"),
+]
+
+
+@pytest.mark.parametrize("solver,precond,omega,counter", KRYLOV_CASES)
+def test_krylov_64_on_kernels_is_bitwise_its_plain_solve(dev, solver, precond,
+                                                         omega, counter):
+    """A float32 64^3 Krylov solve whose preconditioner runs on the kernels
+    gives the plain-twin solve's count, history and field bit for bit (the
+    kernels are bitwise their twins, the BLAS the same torch ops); the
+    preconditioner's kernel is launched, for sor2sma as K2's pair with b,
+    four calls an application and two applications an iteration."""
+    from cubez_tpu_torch.cuda_kernels import lines as k6_
+    from cubez_tpu_torch.cuda_kernels import rblines as k5_
+
+    wrappers = {"rb_sweeps_n": rb.rb_sweeps_n, "jacobi_k4": k4.jacobi_k4,
+                "rbl": k5_.rbl, "line_j": k6_.line_j}
+    w = wrappers[counter]
+    p = czt.Problem.poisson_cube(64, device=dev, maf=solver.endswith("_maf"))
+    before = w.launches
+    rk = czt.solve(p, solver, omega=omega, itr_max=4000, precond=precond)
+    torch.cuda.synchronize()
+    launches = w.launches - before
+    rp = czt.solve(p, solver, omega=omega, itr_max=4000, precond=precond,
+                   impl="plain")
+    torch.cuda.synchronize()
+    assert w.launches - before == launches  # the plain solve launches none
+    assert rk.iters == rp.iters and rk.res < 1e-5
+    assert torch.equal(rk.history, rp.history) and torch.equal(rk.x, rp.x)
+    # launches a preconditioner application of 8 sweeps: K2's pair runs 2
+    # a launch, K4 JACOBI_N, K5 a launch a colour, K6 a launch a sweep
+    per_apply = {"rb_sweeps_n": 4, "jacobi_k4": 8 // k4.JACOBI_N, "rbl": 16,
+                 "line_j": 8}[counter]
+    applies = rk.iters * (1 if solver == "cg" else 2) + (solver == "cg")
+    assert launches == per_apply * applies
+
+
+def test_krylov_precon_result_is_its_own_on_cuda(dev):
+    """The K4 and K6 line-Jacobi steps return one of two buffers they own:
+    precon(p) must still hold after precon(s) (the BiCGSTAB order)."""
+    from cubez_tpu_torch.solvers import bicgstab
+
+    p = czt.Problem.poisson_cube(32, device=dev)
+    v, w = (torch.rand(32, 32, 32, device=dev) * p.msk for _ in range(2))
+    for name in ("jacobi", "pcr_j_esa", "sor2sma", "pcr_rb"):
+        pre = bicgstab.make_precon(p, name, 0.8)
+        first = pre(v)
+        kept = first.clone()
+        pre(w)
+        torch.cuda.synchronize()
+        assert torch.equal(first, kept), name
+
+
+@pytest.mark.parametrize("solver,precond,omega", [
+    ("pbicgstab", "sor2sma", 1.1), ("pbicgstab", "pcr_rb", 1.1),
+    ("cg", "jacobi", 0.8),
+])
+def test_solve_dist_krylov_on_cuda_blocks(dev, solver, precond, omega):
+    """Krylov solve_dist with eight blocks on the card runs its
+    preconditioner on K8 or K9 and stops where the CPU blocks' twins stop,
+    on the same field to float32 rounding of the dots' fold."""
+    from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
+    from cubez_tpu_torch.cuda_kernels import dist_sweeps as k8
+
+    g = czt.Problem.poisson_cube(32, device=dev)
+    c = czt.Problem.poisson_cube(32, device="cpu")
+    cgm = czt.make_mesh((32, 32, 32), devices=[dev] * 8, div=(2, 2, 2))
+    ccm = czt.make_mesh((32, 32, 32), devices=["cpu"] * 8, div=(2, 2, 2))
+    before = k8.block_sweep.launches + k9.block_pcr.launches
+    rg = czt.solve_dist(g, cgm, solver, omega=omega, itr_max=4000,
+                        precond=precond)
+    torch.cuda.synchronize()
+    assert k8.block_sweep.launches + k9.block_pcr.launches > before
+    rc = czt.solve_dist(c, ccm, solver, omega=omega, itr_max=4000,
+                        precond=precond)
+    assert abs(rg.iters - rc.iters) <= 1 and rg.res < 1e-5
+    assert czt.max_error(g.grid, rg.x) == pytest.approx(
+        czt.max_error(c.grid, rc.x), rel=1e-2)
+
+
+@pytest.mark.parametrize("path", ["pbicgstab sor2sma", "pbicgstab pcr_rb",
+                                  "cg jacobi", "dist pbicgstab sor2sma"])
+def test_krylov_syncs_the_host_once_an_iteration(dev, path):
+    """The Krylov loop waits for the card once an iteration (the residual
+    and the next rho in one transfer): four more iterations cost four more
+    synchronizing operations (torch.cuda's sync debug mode counts them)."""
+    import warnings
+
+    words = path.split()
+    dist = words[0] == "dist"
+    solver, precond = words[-2:]
+    p = czt.Problem.poisson_cube(32, device=dev)
+    cm = czt.make_mesh((32, 32, 32), devices=[dev] * 8, div=(2, 2, 2))
+
+    def syncs(itr_max):
+        kw = dict(omega=0.8 if precond == "jacobi" else 1.1, itr_max=itr_max,
+                  eps=1e-30, precond=precond)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                r = (czt.solve_dist(p, cm, solver, **kw) if dist
+                     else czt.solve(p, solver, **kw))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        n = sum("synchroniz" in str(w.message) for w in caught)
+        return r.iters, n
+
+    syncs(3)  # the kernels' first launches (build, plans) out of the count
+    (i3, n3), (i7, n7) = syncs(3), syncs(7)
+    assert (i3, i7) == (2, 6)
+    assert n7 - n3 == i7 - i3, (n3, n7)

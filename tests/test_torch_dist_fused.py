@@ -171,7 +171,7 @@ def test_dryrun_fused_proofs_at_32():
 
 
 @pytest.mark.parametrize("solver,kw,exc,match", [
-    ("pbicgstab", {}, NotImplementedError, "slice 4"),
+    ("mg", {}, NotImplementedError, "slice 7"),
     ("psor", {}, NotImplementedError, "slice 6"),
     ("pcr", {}, NotImplementedError, "slice 6"),
     ("sor2sma", {"impl": "pallas"}, ValueError, "impl"),
@@ -179,9 +179,10 @@ def test_dryrun_fused_proofs_at_32():
     ("sor2sma", {"sync": "pack", "dtype": torch.float64}, ValueError, "pack"),
 ])
 def test_unported_paths_raise(solver, kw, exc, match):
-    """What the JAX package reaches only through auto-SPMD (Krylov, the
-    exact serial orders) raises, naming the slice that brings it; it never
-    runs the serial solver.  Bad options raise ValueError."""
+    """What the JAX package reaches only through auto-SPMD (the exact
+    serial orders) and the extensions raise, naming the slice that brings
+    them; they never run the serial solver.  Bad options raise
+    ValueError."""
     p = czt.Problem.poisson_cube(N, dtype=kw.pop("dtype", torch.float32),
                                  device="cpu", maf=solver.endswith("_maf"))
     with pytest.raises(exc, match=match):

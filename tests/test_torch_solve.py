@@ -179,7 +179,7 @@ def test_write_history_byte_identical(tmp_path):
 @pytest.mark.parametrize("name,where", [
     ("psor", "slice 6"), ("pcr", "slice 6"),
     ("pcr_esa_maf", "slice 6"), ("psor_maf", "slice 6"),
-    ("pbicgstab", "slice 4"), ("cg", "slice 4"),
+    ("pcr_eda", "slice 6"), ("fmg", "slice 7"),
     ("mg", "slice 7"), ("fd", "slice 7"),
 ])
 def test_unported_solvers_name_their_slice(name, where):
