@@ -169,7 +169,23 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     pair with b
     per call at 256^3 against its twin; and the wall, device time, device
     launches and busy share an iteration of the 256^3 and 128^3 solves
-    beside the bound of an iteration.
+    beside the bound of an iteration;
+20. the exact serial orders (slice 6): one sweep of P1 (psor, csrc/psor.cu)
+    and P2 (pcr, csrc/pcr_gs.cu) on the diagonal layout against its plain
+    twin, bit for bit, at 128^3 float32 (timed: ms a sweep in one launch)
+    and 64^3 float64, constant and MAF; then, each with the counts zeroed
+    just before and read just after (one launch a sweep, no other kernel
+    of the slice), psor, psor_maf, pcr and pcr_maf at 128^3 float32
+    (DIAG_MAF_N for the MAF forms) against the f32 oracle (3249, 3249,
+    1357, 1356 +-2%; at 128^3 the curves rtol 1e-3 but for the last entry
+    against the oracle with float64 sums of dp^2, tests/
+    torch_ref_histories) and at 64^3
+    float64 (+-1%, rtol 1e-6); pcr_eda and pcr_esa at 32^3 (pcr's count and
+    field); solve_dist of psor and pcr over (2, 2, 2) at 64^3 (the serial
+    count, history and field bit for bit); pbicgstab with psor at 64^3
+    (16 P1 launches an iteration); the CLI ``124 124 124 pcr 10000 1.5``
+    (the in-process count); and the wall, device time, device launches and
+    busy share a sweep of 200-sweep psor and pcr solve windows at 128^3.
 
 The line before the last is a JSON object with one entry per kernel
 variant (its bound: the larger of the bytes it must move over 3.35 TB/s
@@ -220,6 +236,8 @@ ERR_RTOL = 1e-2
 # by those iterations: equally valid 256^3 trajectories of the port give
 # 0.0064 (f64) to 0.027 (f32), so it is held under a bound.
 KRYLOV_TAIL = 5
+# the MAF forms of slice 6's solves (phase 20) run at this size in float32
+DIAG_MAF_N = 128
 KRYLOV_ERR_256 = 0.05
 OMEGA = 1.5
 OMEGA_J = 0.8
@@ -282,6 +300,10 @@ def main():
     from cubez_tpu_torch.cuda_kernels import rblines as k5
     from cubez_tpu_torch.cuda_kernels import rbpack as rb
     from cubez_tpu_torch.cuda_kernels import sweeps as k4
+    from cubez_tpu_torch.cuda_kernels import pcr_gs as kp2
+    from cubez_tpu_torch.cuda_kernels import psor as kp1
+    from cubez_tpu_torch.ops import pcr_gs as gs_ops
+    from cubez_tpu_torch.ops import psor_scan
     from cubez_tpu_torch.ops.pcr import num_stage
     from cubez_tpu_torch.parallel import dist_fused, dist_pack
     from cubez_tpu_torch.solvers.driver import fixed_sweeps
@@ -297,7 +319,8 @@ def main():
     wrappers = {"rb_single": rb.rb_single, "rb_sweeps_n": rb.rb_sweeps_n,
                 "k4_jacobi": k4.jacobi_k4, "k4_rb_color": k4.sor2sma_k4,
                 "rbl": k5.rbl, "line_j": k6.line_j, "line_rb": k6.line_rb,
-                "dist_rb_sweeps": k7.dist_rb_sweeps, "fused_pcr": k10.fused_pcr}
+                "dist_rb_sweeps": k7.dist_rb_sweeps, "fused_pcr": k10.fused_pcr,
+                "psor_diag": kp1.psor_diag, "pcr_gs_diag": kp2.pcr_gs_diag}
     k9_variants = ("block_pcr", "block_pcr_maf", "block_pcr_fastdiag",
                    "block_pcr_fastdiag_maf")
 
@@ -306,7 +329,7 @@ def main():
             w.launches = w.maf_launches = 0
         # K1, K2/K3, K8, K9 and K10 count their launches by variant too
         for w in (rb.rb_single, rb.rb_sweeps_n, k8.block_sweep, k9.block_pcr,
-                  k10.fused_pcr):
+                  k10.fused_pcr, kp2.pcr_gs_diag):
             w.variant_launches = {}
         for w in (k8.block_sweep, k9.block_pcr):
             w.launches = 0
@@ -2397,6 +2420,230 @@ def main():
               f"{bound_ms * 1e3:.1f} us an iteration (bytes) {tag}", flush=True)
         del p, q, r, prof
 
+    # ---- 20. the exact serial orders (slice 6): P1 and P2 -------------------
+    stamp(20)
+    t20 = time.perf_counter()
+    # one sweep of each kernel against its plain twin on the same inputs
+    # (skewed seeded fields), bit for bit: 128^3 float32 (the path's shape,
+    # timed) and 64^3 float64, constant and MAF; the residuals, float64
+    # sums in another order on the two sides, to rtol 1e-10
+    diag_timing = {}
+    for n, dtype in ((128, f32), (64, f64)):
+        skew, _, _ = psor_scan.make_skew((n,) * 3)
+        S, B = (skew(torch.rand((n,) * 3, device=dev, generator=dgen,
+                                dtype=dtype) * 2 - 1) for _ in range(2))
+        for maf in (False, True):
+            mc = (Problem.poisson_cube(n, dtype=dtype, device=dev, maf=True).mc
+                  if maf else None)
+            for kname, omega in (("psor_diag", 1.1), ("pcr_gs_diag", OMEGA)):
+                if kname == "psor_diag":
+                    launch = kp1.PsorSweep(omega, mc)
+
+                    def kfn(S_):
+                        return kp1.psor_diag(S_, B, omega, mc, launcher=launch)
+
+                    def pfn(S_):
+                        return psor_scan.psor_diag_plain(S_, B, omega, mc)
+                else:
+                    launch = kp2.PcrGsSweep(omega, mc)
+                    tabs = launch.tables(S)
+
+                    def kfn(S_):
+                        return kp2.pcr_gs_diag(S_, B, omega, mc, launcher=launch)
+
+                    def pfn(S_):
+                        return gs_ops.pcr_gs_diag_plain(S_, B, omega, tabs)
+                var = kname + ("_maf" if maf else "")
+                label = f"{var} {n}^3 {str(dtype)[6:]}"
+                Sk, rk = kfn(S.clone())
+                Sp, rp = pfn(S)
+                sync()
+                e = float((Sk - Sp).abs().max())
+                check(torch.equal(Sk, Sp), f"{label}: the sweep differs from its "
+                      f"twin's by {e}")
+                r_rel = abs(float(rk) / float(rp) - 1)  # rk: the launcher's buffer
+                check(r_rel <= 1e-10, f"{label}: residual {float(rk)} against "
+                      f"the twin's {float(rp)}")
+                # ms a sweep: back-to-back sweeps of one field (in place)
+                Sw = Sk.clone()
+                kfn(Sw)
+                k_ms = min(events_ms(lambda: kfn(Sw), 10),
+                           events_ms(lambda: kfn(Sw), 10))
+                p_ms = events_ms(lambda: pfn(S), 1)
+                diag_timing[(var, n)] = (k_ms, p_ms)
+                if n == 128:
+                    err[var] = e
+                    per_call[var] = (k_ms, p_ms)
+                plan = (f", {launch.plan.form} form, {launch.grid} CTAs"
+                        if kname == "pcr_gs_diag" else f", {launch.grid} CTA(s)")
+                print(f"{label}: one sweep bitwise its twin, residual rtol "
+                      f"{r_rel:.1e}; {k_ms:.4f} ms a "
+                      f"sweep in one launch{plan} (twin {p_ms:.4f} ms) {tag}",
+                      flush=True)
+                del Sk, Sp, Sw
+        del S, B
+    pn128 = num_stage(126)
+    # 3 fields a sweep (S and B read, S written once); operations an inner
+    # point: psor 12 (five adds, the subtraction of b, the division, the
+    # update's three, dp^2 and its sum), MAF 21; pcr K10's count of a line
+    # row (4 + 5 (pn - 1) + 8 with tables, 15 + 16 (pn - 1) + 11 under MAF)
+    work.update({
+        "psor_diag": (3 * fb, 12 * inner),
+        "psor_diag_maf": (3 * fb, 21 * inner),
+        "pcr_gs_diag": (3 * fb, (4 + 5 * (pn128 - 1) + 8) * inner),
+        "pcr_gs_diag_maf": (3 * fb, (15 + 16 * (pn128 - 1) + 11) * inner),
+    })
+
+    def diag_solve(p, name, omega, **kw):
+        zero_counts()
+        t0 = time.perf_counter()
+        r = solve(p, name, omega=omega, itr_max=20000, **kw)
+        sync()
+        return r, read_counts(), time.perf_counter() - t0
+
+    def diag_var(name):
+        return (("psor_diag" if name.startswith("psor") else "pcr_gs_diag")
+                + ("_maf" if name.endswith("_maf") else ""))
+
+    # the oracle's runs: 128^3 float32 (count +-2%; curve rtol 1e-3 but for
+    # the last entry, against the oracle with float64 sums of dp^2, HIST64:
+    # the reference sums these sweeps' dp^2 in one float, the kernels in
+    # float64) and 64^3 float64 (+-1%, rtol 1e-6); each solve with the
+    # counts zeroed just before and read just after: one launch a sweep and
+    # no other kernel of this slice
+    diag_solves = {}
+    for name, omega, n, dtype in (
+            ("psor", 1.1, 128, f32), ("psor_maf", 1.1, DIAG_MAF_N, f32),
+            ("pcr", OMEGA, 128, f32), ("pcr_maf", OMEGA, DIAG_MAF_N, f32),
+            ("psor", 1.1, 64, f64), ("psor_maf", 1.1, 64, f64),
+            ("pcr", OMEGA, 64, f64), ("pcr_maf", OMEGA, 64, f64)):
+        is32 = dtype == f32
+        label = f"{name} {n}^3 {'f32' if is32 else 'f64'}"
+        stem = (f"{'f32' if is32 else 'f64'}_{name}_{n}_w"
+                f"{'1.1' if name.startswith('psor') else '1.5'}")
+        ref = load_history(stem + ".txt")
+        curve = (load_history(stem + "_f64sum.txt", HIST64)
+                 if is32 and n == 128 else ref)
+        p = Problem.poisson_cube(n, dtype=dtype, device=dev,
+                                 maf=name.endswith("_maf"))
+        r, c, wall = diag_solve(p, name, omega)
+        var = diag_var(name)
+        check(r.x.shape == (n,) * 3 and bool(torch.isfinite(r.x).all()),
+              f"{label}: field of the wrong shape or not finite")
+        check(abs(r.iters - len(ref)) <= max(1, len(ref) * (2 if is32 else 1) // 100),
+              f"{label}: {r.iters} iterations, oracle {len(ref)}")
+        m = min(r.iters, len(curve)) - (1 if is32 else 0)
+        worst = max(abs(h / q - 1) for h, q in zip(r.history[:m].tolist(),
+                                                   curve[:m]))
+        check(worst <= (1e-3 if is32 else 1e-6), f"{label}: history rtol {worst}")
+        others = [v for v in ("psor_diag", "psor_diag_maf", "pcr_gs_diag",
+                              "pcr_gs_diag_maf") if v != var]
+        check(c[var] == r.iters and not any(c[v] for v in others),
+              f"{label}: {c[var]} {var} launches for {r.iters} sweeps")
+        if is32:
+            path_launches[var] = c[var]
+        diag_solves[(name, n)] = (r.iters, wall)
+        print(f"{label}: {r.iters} iterations (oracle {len(ref)}), history rtol "
+              f"{worst:.2e}, res {r.res:e}, Error max {err_max(p, r.x):e}, wall "
+              f"{wall:.3f} s ({wall / r.iters * 1e3:.4f} ms a sweep), {var} "
+              f"launches {c[var]} {tag}", flush=True)
+        del p, r
+
+    # pcr_eda and pcr_esa: pcr's step (three layouts of one serial line
+    # Gauss-Seidel), at 32^3 float32 the f32 oracle's 142 +-2%
+    p32 = Problem.poisson_cube(32, device=dev)
+    r_pcr, _, _ = diag_solve(p32, "pcr", OMEGA)
+    for name in ("pcr_eda", "pcr_esa"):
+        r, c, _ = diag_solve(p32, name, OMEGA)
+        check(r.iters == r_pcr.iters and abs(r.iters - 142) <= 2
+              and torch.equal(r.x, r_pcr.x) and c["pcr_gs_diag"] == r.iters,
+              f"{name} 32^3: {r.iters} iterations ({c['pcr_gs_diag']} P2 "
+              f"launches), pcr {r_pcr.iters}")
+        print(f"{name} 32^3 f32: {r.iters} iterations, pcr's field bit for "
+              f"bit, P2 launches {c['pcr_gs_diag']} {tag}", flush=True)
+
+    # solve_dist over (2, 2, 2) at 64^3 (the serial step on the gathered
+    # field): the serial count, history and field bit for bit
+    p64 = Problem.poisson_cube(64, device=dev)
+    cm64 = make_mesh((64,) * 3, devices=[dev] * 8, div=(2, 2, 2))
+    for name, omega in (("psor", 1.1), ("pcr", OMEGA)):
+        rs, _, _ = diag_solve(p64, name, omega)
+        zero_counts()
+        t0 = time.perf_counter()
+        rd = solve_dist(p64, cm64, name, omega=omega, itr_max=20000)
+        sync()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        var = diag_var(name)
+        check(rd.iters == rs.iters and torch.equal(rd.x, rs.x)
+              and torch.equal(rd.history, rs.history) and c[var] == rd.iters,
+              f"solve_dist {name} 64^3: {rd.iters} iterations, serial "
+              f"{rs.iters}, or the field differs")
+        print(f"solve_dist {name} 64^3 f32 over (2, 2, 2): {rd.iters} "
+              f"iterations, the serial field bit for bit, wall {wall:.3f} s "
+              f"{tag}", flush=True)
+
+    # pbicgstab with psor as its preconditioner: 8 sweeps an application in
+    # the step's own layout, two applications an iteration
+    r, c, wall = krylov(p64, "pbicgstab", "psor", omega=1.1)
+    check(r.res < 1e-5 and c["psor_diag"] == 16 * r.iters,
+          f"pbicgstab psor 64^3: res {r.res}, {c['psor_diag']} P1 launches for "
+          f"{r.iters} iterations")
+    print(f"pbicgstab psor 64^3 f32: {r.iters} iterations, res {r.res:e}, "
+          f"Error max {err_max(p64, r.x):e}, wall {wall:.3f} s, P1 launches "
+          f"{c['psor_diag']} {tag}", flush=True)
+    del p32, p64, cm64, r, rs, rd, r_pcr
+
+    # the reference's documented run, ./cz 124 124 124 pcr 10000 1.5
+    # (Readme.md:390), through the CLI: the in-process solve's count
+    p124 = Problem.poisson_cube(124, device=dev)
+    r124, _, _ = diag_solve(p124, "pcr", OMEGA)
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "cubez_tpu_torch.cli", "124", "124", "124",
+             "pcr", "10000", "1.5"], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=300)
+        check(proc.returncode == 0, f"CLI pcr exited {proc.returncode}:\n"
+              f"{proc.stderr}")
+        check(f"Iter = {r124.iters}  Res = " in proc.stdout
+              and "Error max = " in proc.stdout,
+              f"CLI 124^3 pcr: not the in-process count {r124.iters}")
+        for ln in proc.stdout.splitlines():
+            if ln.startswith(("Iter =", "wall =", "Error max")):
+                print(f"CLI 124^3 pcr: {ln.strip()}")
+    del p124, r124
+
+    # busy share of the 128^3 float32 paths: 200 sweeps of a solve (eps
+    # 1e-30: no stop), one launch and one host check a sweep, under
+    # torch.profiler
+    diag_busy = {}
+    for name, omega in (("psor", 1.1), ("pcr", OMEGA)):
+        p = Problem.poisson_cube(128, device=dev)
+        solve(p, name, omega=omega, itr_max=8, eps=1e-30)  # warm-up
+        sync()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            solve(p, name, omega=omega, itr_max=200, eps=1e-30)
+            sync()
+            wall = time.perf_counter() - t0
+        us = n_ev = 0
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t = getattr(ev, "self_device_time_total", None)
+            t = ev.self_cuda_time_total if t is None else t
+            if t > 0:
+                us += t
+                n_ev += ev.count
+        check(us > 0, f"{name}: the profiler recorded no device time")
+        diag_busy[name] = (us / 200, n_ev / 200, us / 1e6 / wall)
+        print(f"timing {name} 128^3 f32 solve window: wall "
+              f"{wall / 200 * 1e3:.4f} ms a sweep, device {us / 200:.1f} us and "
+              f"{n_ev / 200:.2f} device launches a sweep, busy share "
+              f"{us / 1e6 / wall:.3f} {tag}", flush=True)
+        del p, prof
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
+
     rbpack_cu = "cubez_tpu_torch/csrc/rbpack.cu"
     sweeps_cu = "cubez_tpu_torch/csrc/sweeps.cu"
     rblines_cu = "cubez_tpu_torch/csrc/rblines.cu"
@@ -2414,6 +2661,10 @@ def main():
     k9_site = "cubez_tpu/pallas_kernels/dist_pcr.py:379"
     k10_site = "cubez_tpu/pallas_kernels/pcr.py:414"
     dist_halo_cu = "cubez_tpu_torch/csrc/dist_halo.cu"
+    psor_cu = "cubez_tpu_torch/csrc/psor.cu"
+    pcr_gs_cu = "cubez_tpu_torch/csrc/pcr_gs.cu"
+    psor_site = "cubez_tpu/ops/psor_scan.py:82"
+    pcr_gs_site = "cubez_tpu/ops/pcr_gs.py:33"
     meta = {
         # K1: rb_sweeps_n's launch at n = 1, the row form at 128^3 and the
         # one-pass tile form beyond the L2 (the 512^3 replays, phase 6)
@@ -2463,6 +2714,12 @@ def main():
         # by lax.psum; these launches take their place on one card
         "halo_exchange": (dist_halo_cu, "cubez_tpu/parallel/halo.py:36"),
         "fold_partials": (dist_halo_cu, "cubez_tpu/parallel/halo.py:60"),
+        # no pallas_call: the JAX package's diagonal steps are XLA loops
+        # (P1 and P2 take their place)
+        "psor_diag": (psor_cu, psor_site),
+        "psor_diag_maf": (psor_cu, psor_site),
+        "pcr_gs_diag": (pcr_gs_cu, pcr_gs_site),
+        "pcr_gs_diag_maf": (pcr_gs_cu, pcr_gs_site),
     }
     for name in meta:
         check(path_launches.get(name, 0) > 0, f"{name}: no path launched it")

@@ -70,6 +70,8 @@ def _declare(lib):
     lib.cz_pcr_threads_per_block.restype = i32
     lib.cz_dist_max_blocks.argtypes = []
     lib.cz_dist_max_blocks.restype = i32
+    lib.cz_psor_threads_per_block.argtypes = []
+    lib.cz_psor_threads_per_block.restype = i32
     for t in ("f32", "f64"):
         for name, args in (
             # rbpack.cu: (form, n, maf, has_b, smem, device, out); (ptrs,
@@ -104,6 +106,11 @@ def _declare(lib):
             ("pcr_lines_max_blocks", [i32, i32, i32, i32, ctypes.POINTER(i32)]),
             ("pcr_lines", [pvp, pi32, f64, vp]),
             ("block_pcr", [pvp, pi32, f64, vp, vp]),
+            # psor.cu (P1) and pcr_gs.cu (P2): (ptrs, iargs, omega,
+            # stream); P2's occupancy (slabs, maf, smem, device, out)
+            ("psor_sweep", [pvp, pi32, f64, vp]),
+            ("pcr_gs_max_blocks", [i32, i32, i32, i32, ctypes.POINTER(i32)]),
+            ("pcr_gs_sweep", [pvp, pi32, f64, vp]),
         ):
             fn = getattr(lib, f"cz_{name}_{t}")
             fn.argtypes = args

@@ -141,12 +141,17 @@ class MafCoeffs:
 # --- sweeps -----------------------------------------------------------------
 
 
+def maf_point_delta(rp, x, dd, omega):
+    """dp = (rp / dd - x) * omega from the weighted neighbour sums plus b,
+    ``rp``."""
+    om = torch.tensor(omega, dtype=x.dtype, device=x.device)
+    return (rp / dd - x) * om
+
+
 def maf_delta(x, b, msk, omega, mc: MafCoeffs):
     """dp = ((rp + b) / dd - x) * omega on masked nodes (psor_maf,
     cz_maf.f90:94-105)."""
-    rp = mc.nbr_weighted(x) + b
-    om = torch.tensor(omega, dtype=x.dtype, device=x.device)
-    return (rp / mc.dd - x) * om * msk
+    return maf_point_delta(mc.nbr_weighted(x) + b, x, mc.dd, omega) * msk
 
 
 def jacobi_maf_sweep(x, b, msk, omega, mc):

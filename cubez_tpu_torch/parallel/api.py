@@ -11,8 +11,12 @@ sor2sma_maf on K7 (the packed path, dist_pack.py), jacobi and sor2sma on
 K8 and the line solvers (pcr_rb, pcr_rb_esa, pcr_j_esa and their MAF
 forms) on K9 (dist_fused.py); everything else the JAX package runs on its
 jnp steps, float64, the MAF point sweeps off the packed path, jacobi with
-sync='overlap' and a non-standard mask, runs on parallel/dist.py.  Every
-route drives the same convergence logic as the serial path.  The Krylov
+sync='overlap' and a non-standard mask, runs on parallel/dist.py.  The
+exact serial orders (psor, pcr, pcr_eda, pcr_esa and their MAF forms),
+which the JAX package reaches only through auto-SPMD with serial
+semantics, run their serial step on the gathered field
+(dist.make_gathered_step).  Every route drives the same convergence logic
+as the serial path.  The Krylov
 solvers run their loops on the blocks (krylov.py), with these routes for
 their preconditioner.
 """
@@ -26,9 +30,9 @@ import torch
 
 from ..core.problem import Problem
 from ..solvers.driver import EPS_DEFAULT, SolveResult, run_iterative
-from ..solvers.steps import KRYLOV, require_ported
+from ..solvers.steps import DIAGONAL, KRYLOV, require_ported
 from . import dist_fused, dist_pack
-from .dist import make_dist_step
+from .dist import make_dist_step, make_gathered_step
 from .krylov import solve_krylov_dist
 from .mesh import CubeMesh
 
@@ -72,9 +76,13 @@ def solve_dist(
     float64, the MAF point sweeps off the packed path, jacobi with
     sync='overlap' and a non-standard mask run parallel/dist.py's steps,
     plain torch operations on the blocks' devices, as the JAX package runs
-    them on its jnp steps.  psor and pcr_gs (slice 6), which the JAX
-    package reaches only through auto-SPMD, raise NotImplementedError
-    naming their slice.
+    them on its jnp steps.  psor and pcr_gs (pcr, pcr_eda, pcr_esa) and
+    their MAF forms, which the JAX package reaches only through auto-SPMD
+    with serial semantics, gather the blocks on the first block's device
+    and run the serial step there (kernels P1 and P2 on the diagonal
+    layout), so their counts and fields are the serial solve's bit for
+    bit; ``sync`` is unused by them ('pack' raises), and a non-standard
+    mask raises ValueError, as serially.
 
     The Krylov solvers ``pbicgstab``, ``pbicgstab_maf`` and ``cg`` run
     bicgstab.py's and cg.py's loops on the blocks (parallel/krylov.py):
@@ -117,6 +125,14 @@ def solve_dist(
         raise ValueError(
             "sync='pack' applies only to sor2sma in float32 with the standard "
             "mask; use sync='auto' to fall back to 'color'")
+    if kind in DIAGONAL:
+        step, pre, post = make_gathered_step(mc_problem, cmesh, solver, omega,
+                                             plain=plain)
+        result = run_iterative(step, cmesh.shard(problem.x0),
+                               cmesh.shard(problem.rhs), g.res_normal, itr_max,
+                               eps, check_every=check_every, pre=pre, post=post)
+        x = cmesh.gather(result.x, device=problem.x0.device)
+        return _finish(dataclasses.replace(result, x=x), history_path)
     if pack_ok:
         pstep = dist_pack.make_dist_packed_step(mc_problem, cmesh, omega,
                                                 plain=plain)

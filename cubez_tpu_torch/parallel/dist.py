@@ -33,7 +33,8 @@ from ..core.problem import Problem
 from ..ops import maf as maf_ops
 from ..ops import stencil
 from ..ops.pcr import num_stage, pcr_reduce_var
-from ..solvers.steps import parse_name
+from ..solvers.fused_cache import get_fused_step
+from ..solvers.steps import parse_name, require_standard_mask
 from .halo import exchange_halo, pad_zeros, psum_all
 from .mesh import CubeMesh
 
@@ -273,3 +274,28 @@ def _make_dist_maf_step(problem: Problem, cmesh: CubeMesh, kind: str,
         return xs, r2
 
     return _attach(step)
+
+
+def make_gathered_step(problem: Problem, cmesh: CubeMesh, name: str,
+                       omega: float, plain: bool = False):
+    """(step, pre, post) of an exact serial order (psor, pcr_gs and their
+    ``_maf`` forms, by ``name``) on a mesh, where the JAX package reaches
+    them only through auto-SPMD with serial semantics (its
+    parallel/api.py:187-225): ``pre`` gathers the blocks on the first
+    block's device and skews the field, the serial step of
+    ``get_fused_step`` (kernel P1 or P2, or with ``plain`` its twin) runs
+    there, and ``post`` unskews and shards the result back.  Counts and
+    fields are the serial solve's bit for bit.  ValueError for a
+    non-standard mask, as the serial step raises."""
+    require_standard_mask(problem, name)
+    kind, _ = parse_name(name)
+    step = get_fused_step(kind, problem.grid, omega, mc=problem.mc, plain=plain)
+    dev = cmesh.devices[0]
+
+    def pre(blocks):
+        return step.pad(cmesh.gather(blocks, device=dev))
+
+    def post(S):
+        return cmesh.shard(step.unpad(S))
+
+    return step, pre, post

@@ -15,7 +15,9 @@ streamed b: in float32 with the standard mask, the K8 step (jacobi,
 sor2sma; 'color' cadence) or the K9 step (the line kinds, constant and
 MAF) of ``dist_fused.make_dist_fused_step`` on ghosted blocks; otherwise
 (float64, the MAF point sweeps, another mask) dist.py's plain step on the
-blocks.  The packed path does not apply: it refuses a nonzero b.
+blocks.  The exact serial orders (psor, pcr_gs) run their serial step on
+the gathered vector (``dist.make_gathered_step``).  The packed path does
+not apply: it refuses a nonzero b.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..solvers.bicgstab import (VectorOps, check_precond, is_identity,
 from ..solvers.cg import check_cg, run_cg
 from ..solvers.driver import SolveResult
 from . import dist_fused
-from .dist import _interior, _local_mc, make_dist_step
+from .dist import _interior, _local_mc, make_dist_step, make_gathered_step
 from .halo import exchange_halo, pad_zeros, psum_all
 from .mesh import CubeMesh
 
@@ -89,6 +91,9 @@ def make_dist_precon(problem: Problem, cmesh: CubeMesh, precond, omega: float,
     kind = check_precond(precond)
     pprob = dataclasses.replace(problem,
                                 mc=steps_mod.maf_coeffs(problem, precond))
+    if kind in steps_mod.DIAGONAL:
+        return sweeps_precon(*make_gathered_step(pprob, cmesh, precond, omega,
+                                                 plain=impl == "plain"))
     step = None
     if (problem.grid.dtype == torch.float32 and problem.msk_is_standard()
             and (kind in dist_fused.LINE_KINDS or pprob.mc is None)):

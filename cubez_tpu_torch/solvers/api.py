@@ -7,6 +7,8 @@ solver dispatch of CZ::Evaluate, cz_Evaluate.cpp:414-489).
                    omega=1.5, itr_max=10000)
     result = solve(Problem.poisson_cube(256, device="cuda"), "pbicgstab",
                    omega=1.1, itr_max=4000, precond="sor2sma")
+    result = solve(Problem.poisson_cube(128, device="cuda"), "psor",
+                   omega=1.1, itr_max=10000)
 """
 
 from __future__ import annotations
@@ -48,10 +50,14 @@ def solve(
     step for them (its get_jnp_step): a mask other than the standard one
     (the kernels synthesize the standard mask from the indices), and a
     line solver with fewer than two inner points along K (the JAX
-    package's n = K - 2 < 2, where no tiling fits).  The route is chosen
-    from the configuration before anything launches, never on a kernel's
-    failure: a CUDA kernel that fails to build or launch raises.  The
-    kernels' launch counters show that none ran.
+    package's n = K - 2 < 2, where no tiling fits).  The exact serial
+    orders (psor, pcr, pcr_eda, pcr_esa and their MAF forms) take the
+    standard mask only and raise ValueError for another, as the JAX
+    package's steps do; with it they run kernels P1 and P2 on the diagonal
+    layout, one launch a sweep and a host check a sweep.  The route is
+    chosen from the configuration before anything launches, never on a
+    kernel's failure: a CUDA kernel that fails to build or launch raises.
+    The kernels' launch counters show that none ran.
 
     The Krylov drivers ``pbicgstab``/``pbicgstab_maf`` (solvers/
     bicgstab.py) and ``cg`` (solvers/cg.py) run their loop with one host

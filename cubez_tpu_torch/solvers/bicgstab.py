@@ -19,11 +19,16 @@ through (cz_Poisson.cpp:320).  It takes the route the port's ``solve``
 takes for that name with a streamed b (solvers/api.py): the kernel step of
 ``get_fused_step`` with the standard mask (sor2sma: K2's pair, or K4's
 one-pass red-black step for odd I; jacobi: K4; pcr_rb: K5, or K6's
-red-black form for odd I; pcr_j_esa: K6's line-Jacobi form), in float32
-and float64, constant and MAF alike; otherwise ``steps.make_step``.  The
-JAX package fuses it only for float32 and non-MAF names (its
-_fused_precon): the port follows its own dispatch on purpose, as ``solve``
-does.
+red-black form for odd I; pcr_j_esa: K6's line-Jacobi form; psor: P1;
+pcr, pcr_eda, pcr_esa: P2, those two in the step's own diagonal layout
+through its ``pad``/``unpad``), in float32 and float64, constant and MAF
+alike; otherwise ``steps.make_step`` (which refuses psor and pcr with a
+non-standard mask, as the JAX package does).  The JAX package's
+preconditioner hands its unskewed vector to the skewed psor/pcr steps
+(its bicgstab.py:127-135, a fault of the reference package, ROADMAP.md);
+the port does not copy that.  The JAX package fuses it only for float32
+and non-MAF names (its _fused_precon): the port follows its own dispatch
+on purpose, as ``solve`` does.
 """
 
 from __future__ import annotations

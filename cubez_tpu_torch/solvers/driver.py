@@ -45,10 +45,11 @@ def run_iterative(step, x0, b, res_normal: float, itr_max: int,
     chunk is replayed from its start with ``step.single`` (a one-iteration
     step on the same layout) up to the stopping sweep.
 
-    ``check_every`` None means 16 for CUDA tensors (the JAX package's TPU
-    default: a host sync costs more than a sweep) and 1 elsewhere; it is
-    rounded up to whole calls of a multi-iteration step
-    (``step.iters_per_call``).  ``pre``/``post`` convert to and from the
+    ``check_every`` None means the step's ``check_every_default`` where it
+    has one (the exact serial orders: 1, a sweep being far longer than a
+    host sync), else 16 for CUDA tensors (the JAX package's TPU default: a
+    host sync costs more than a sweep) and 1 elsewhere; it is rounded up
+    to whole calls of a multi-iteration step (``step.iters_per_call``).  ``pre``/``post`` convert to and from the
     step's state layout; ``pre`` must return new tensors, because steps may
     update their state in place.  The state may also be a list of tensors
     (the blocks of a distributed solve); the history then lives on the
@@ -58,7 +59,8 @@ def run_iterative(step, x0, b, res_normal: float, itr_max: int,
         raise ValueError("itr_max must be >= 1")
     first = x0[0] if isinstance(x0, list) else x0
     if check_every is None:
-        check_every = 16 if first.is_cuda else 1
+        check_every = getattr(step, "check_every_default", None) or (
+            16 if first.is_cuda else 1)
     ipc = getattr(step, "iters_per_call", 1)
     single = getattr(step, "single", step)
     chunk = max(ipc, -(-check_every // ipc) * ipc)

@@ -9,6 +9,8 @@ building a step is cheap and nothing is cached here.
 from __future__ import annotations
 
 from ..cuda_kernels import lines, rblines, rbpack, sweeps
+from ..ops.pcr_gs import make_pcr_gs_diag_step
+from ..ops.psor_scan import make_psor_diag_step
 
 
 def get_fused_step(kind: str, grid, omega: float, mc=None,
@@ -24,13 +26,19 @@ def get_fused_step(kind: str, grid, omega: float, mc=None,
     single sweep, and where the packed layout refuses (odd I) the unpacked
     sweep K4.  jacobi: K4.  pcr_rb: the packed line step K5, and where its
     layout refuses (odd I) K6's red-black form.  pcr (pcr_j_esa): K6's
-    line-Jacobi form.  ``mc`` selects the MAF forms.  ``plain`` makes the
-    step run the plain twins on any device; otherwise the kernels run for
-    CUDA tensors.
+    line-Jacobi form.  psor: kernel P1, pcr_gs (pcr, pcr_eda, pcr_esa):
+    kernel P2, one launch a sweep on the diagonal layout (they always read
+    b).  ``mc`` selects the MAF forms.  ``plain`` makes the step run the
+    plain twins on any device; otherwise the kernels run for CUDA tensors.
     Every step carries ``pad``/``unpad``, the converters to and from its
-    state layout (the packed colour folds, or K4's and K6's copy)."""
+    state layout (the packed colour folds, K4's and K6's copy, or the
+    diagonal skew)."""
     shape, dtype = grid.shape_kij, grid.dtype
     kw = dict(omega=omega, mc=mc, plain=plain)
+    if kind == "psor":
+        return make_psor_diag_step(shape, dtype, **kw)
+    if kind == "pcr_gs":
+        return make_pcr_gs_diag_step(shape, dtype, **kw)
     if kind == "jacobi":
         return sweeps.make_fused_sweep(kind, shape, dtype, b_is_zero=b_is_zero,
                                        **kw)

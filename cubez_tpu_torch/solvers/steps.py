@@ -4,11 +4,13 @@
 The name registry is the JAX package's, verbatim (solver-name parity with
 the reference CLI, cz_Evaluate.cpp:684-803).  This port runs ``sor2sma``,
 ``jacobi``, the line solvers of kinds ``pcr_rb`` (``pcr_rb``,
-``pcr_rb_esa``) and ``pcr`` (``pcr_j_esa``), and their ``_maf`` forms, and
-the Krylov drivers ``pbicgstab``, ``pbicgstab_maf`` (solvers/bicgstab.py)
-and ``cg`` (solvers/cg.py) with those sweeps as preconditioners; every
-other solver, as a solver or a preconditioner, raises
-``NotImplementedError`` naming the slice of ROADMAP.md that brings it.
+``pcr_rb_esa``) and ``pcr`` (``pcr_j_esa``), the exact serial orders of
+kinds ``psor`` and ``pcr_gs`` (``pcr``, ``pcr_eda``, ``pcr_esa``; standard
+mask only), their ``_maf`` forms, and the Krylov drivers ``pbicgstab``,
+``pbicgstab_maf`` (solvers/bicgstab.py) and ``cg`` (solvers/cg.py) with
+those sweeps as preconditioners; the extensions mg, fmg and fd, as a solver
+or a preconditioner, raise ``NotImplementedError`` naming the slice of
+ROADMAP.md that brings them.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from ..cuda_kernels import lines
 from ..cuda_kernels.rbpack import maf_tables
 from ..ops import maf as maf_ops
 from ..ops import stencil
+from ..ops.pcr_gs import make_pcr_gs_diag_step
+from ..ops.psor_scan import make_psor_diag_step
 
 # canonical kind per CLI solver name (see cubez_tpu/solvers/steps.py for
 # the evidence behind each mapping)
@@ -43,8 +47,6 @@ EXTENSION_SOLVERS = ("mg", "mg_maf", "fmg", "fmg_maf", "fd", "fd_maf", "cg")
 
 # where each solver kind lands in ROADMAP.md's queue of slices
 _SLICE = {
-    "psor": "slice 6 (exact serial orders)",
-    "pcr_gs": "slice 6 (exact serial orders)",
     "mg": "slice 7 (extensions)",
     "fmg": "slice 7 (extensions)",
     "fd": "slice 7 (extensions)",
@@ -71,7 +73,9 @@ def parse_name(name: str):
 
 # the Krylov drivers: solvers, never sweeps
 KRYLOV = ("pbicgstab", "cg")
-PORTED = ("sor2sma", "jacobi", "pcr", "pcr_rb") + KRYLOV
+# the exact serial orders: steps on the diagonal layout, standard mask only
+DIAGONAL = ("psor", "pcr_gs")
+PORTED = ("sor2sma", "jacobi", "pcr", "pcr_rb") + DIAGONAL + KRYLOV
 
 
 def require_ported(name: str):
@@ -84,6 +88,13 @@ def require_ported(name: str):
         f"solver '{name}' is not ported to PyTorch yet: {_SLICE[kind]} of "
         "ROADMAP.md"
     )
+
+
+def require_standard_mask(problem: Problem, name: str):
+    """ValueError unless the problem has the standard cube inner mask (the
+    diagonal steps relax every inner line whole)."""
+    if not problem.msk_is_standard():
+        raise ValueError(f"{name} supports the standard cube inner mask only")
 
 
 def maf_coeffs(problem: Problem, name: str):
@@ -103,7 +114,10 @@ def make_step(problem: Problem, name: str, omega: float):
     plain masked sweep of ops/stencil.py or ops/maf.py, or the line twins
     of cuda_kernels/lines.py with the mask.  It carries the problem's own
     mask, so it also serves masks other than the standard one; x is never
-    written.  ValueError for the Krylov drivers, which are not sweeps."""
+    written.  The exact serial orders (psor, pcr_gs) take the standard mask
+    only, as the JAX package's steps do (ValueError for another): theirs is
+    the plain twin on the diagonal layout, with ``pad``/``unpad``.
+    ValueError for the Krylov drivers, which are not sweeps."""
     kind, _ = require_ported(name)
     if kind == "pbicgstab":
         raise ValueError("pbicgstab is a driver, not a sweep; see bicgstab.py")
@@ -112,6 +126,10 @@ def make_step(problem: Problem, name: str, omega: float):
     mc = maf_coeffs(problem, name)
     g = problem.grid
     msk = problem.msk
+    if kind in DIAGONAL:
+        require_standard_mask(problem, name)
+        build = make_psor_diag_step if kind == "psor" else make_pcr_gs_diag_step
+        return build(g.shape_kij, g.dtype, omega, mc=mc, plain=True)
     if kind == "pcr":
         tab = maf_tables(mc, g.shape_kij, g.dtype)
         return lambda x, b: lines.line_j_plain(x, b, omega, tab, msk)

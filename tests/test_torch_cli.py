@@ -104,10 +104,14 @@ def test_cli_division_runs_solve_dist(tmp_path, monkeypatch, capsys):
     assert "mesh division (z,x,y) = (1, 4, 2)" in capsys.readouterr().out
 
 
-def test_cli_unported_solver_raises(tmp_path, monkeypatch):
+def test_cli_unported_solver_raises(tmp_path, monkeypatch, capsys):
+    """psor raised here until slice 6 was ported; now it runs through the
+    CLI as the reference's other names do, its history written."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        main(["8", "8", "8", "psor", "10", "1.5", "--device", "cpu"])
+    assert main(["8", "8", "8", "psor", "10", "1.5", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Iterative Method = psor" in out and "Error max = " in out
+    assert len((tmp_path / "psor.txt").read_text().splitlines()) >= 2
 
 
 @pytest.mark.parametrize("solver,omega,iters", [

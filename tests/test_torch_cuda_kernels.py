@@ -1384,3 +1384,134 @@ def test_krylov_syncs_the_host_once_an_iteration(dev, path):
     (i3, n3), (i7, n7) = syncs(3), syncs(7)
     assert (i3, i7) == (2, 6)
     assert n7 - n3 == i7 - i3, (n3, n7)
+
+
+# ---- slice 6: P1 (psor) and P2 (pcr_gs) on the diagonal layout -------------
+
+# (K, I, J): a ragged and a tall shape, one inner row, and the grid-wide
+# sync between phases or diagonals (P1 at (70, 140, 150): two CTAs; P2
+# wherever its items outnumber one CTA)
+DIAG_SHAPES = [(32, 32, 32), (37, 22, 45), (6, 140, 150), (70, 20, 18),
+               (3, 7, 5), (70, 140, 150)]
+
+
+def _diag_inputs(shape, dtype, dev, seed):
+    from cubez_tpu_torch.ops import psor_scan
+
+    gen = torch.Generator().manual_seed(seed)
+    skew, _, _ = psor_scan.make_skew(shape)
+    x, b = ((torch.rand(shape, generator=gen, dtype=torch.float64) * 2 - 1)
+            .to(dtype) for _ in range(2))
+    return skew(x).to(dev), skew(b).to(dev)
+
+
+def _diag_mc(shape, dtype, dev, maf):
+    if not maf:
+        return None
+    K, I, J = shape
+    return czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                              device=dev)[0].mc
+
+
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", DIAG_SHAPES)
+def test_p1_is_bitwise_its_twin(dev, shape, dtype, maf):
+    """Three sweeps of P1 (in place, one launch each) equal three of the
+    plain twin bit for bit, float32 and float64; the residuals to 1e-10
+    (both float64 sums, in another order)."""
+    from cubez_tpu_torch.cuda_kernels import psor as p1
+    from cubez_tpu_torch.ops import psor_scan
+
+    S, B = _diag_inputs(shape, dtype, dev, sum(shape))
+    mc = _diag_mc(shape, dtype, dev, maf)
+    launch = p1.PsorSweep(1.1, mc)
+    Sk, Sp = S.clone(), S.clone()
+    before = (p1.psor_diag.launches, p1.psor_diag.maf_launches)
+    for _ in range(3):
+        Sk, rk = p1.psor_diag(Sk, B, 1.1, mc, launcher=launch)
+        Sp, rp = psor_scan.psor_diag_plain(Sp, B, 1.1, mc)
+        torch.cuda.synchronize()
+        assert torch.equal(Sk, Sp)
+        assert float(rk) == pytest.approx(float(rp), rel=1e-10)
+    assert p1.psor_diag.launches - before[0] == 3
+    assert p1.psor_diag.maf_launches - before[1] == (3 if maf else 0)
+    assert _build_lib().cz_psor_threads_per_block() == p1.THREADS
+
+
+def _build_lib():
+    from cubez_tpu_torch.cuda_kernels import _build
+
+    return _build.load()
+
+
+@pytest.mark.parametrize("form", ["lines", "tile"])
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", DIAG_SHAPES + [(600, 14, 12)])
+def test_p2_is_bitwise_its_twin(dev, shape, dtype, maf, form):
+    """Three sweeps of P2 in either form (the tile form forced on short
+    lines; 598-row lines take it by themselves) equal three of the plain
+    twin bit for bit; the residuals to 1e-10."""
+    from cubez_tpu_torch.cuda_kernels import pcr_gs as p2
+    from cubez_tpu_torch.ops import pcr_gs
+
+    if form == "lines" and p2.plan(shape[0] - 2, dtype, maf).form == "tile":
+        pytest.skip("lines past the line form")
+    S, B = _diag_inputs(shape, dtype, dev, 7 * sum(shape))
+    mc = _diag_mc(shape, dtype, dev, maf)
+    launch = p2.PcrGsSweep(1.5, mc, form=None if form == "lines" else "tile")
+    Sk, Sp = S.clone(), S.clone()
+    before = dict(p2.pcr_gs_diag.variant_launches)
+    for _ in range(3):
+        Sk, rk = p2.pcr_gs_diag(Sk, B, 1.5, mc, launcher=launch)
+        Sp, rp = pcr_gs.pcr_gs_diag_plain(Sp, B, 1.5, launch.tables(Sp))
+        torch.cuda.synchronize()
+        assert torch.equal(Sk, Sp)
+        assert float(rk) == pytest.approx(float(rp), rel=1e-10)
+    assert launch.plan.form == form
+    key = (form, maf)
+    assert p2.pcr_gs_diag.variant_launches.get(key, 0) - before.get(key, 0) == 3
+
+
+@pytest.mark.parametrize("name,omega", [("psor", 1.1), ("psor_maf", 1.1),
+                                        ("pcr", 1.5), ("pcr_esa_maf", 1.5)])
+def test_diag_solves_on_cuda_are_bitwise_their_plain_solves(dev, name, omega):
+    """A 32^3 float32 solve on P1/P2 gives the plain-twin solve's count
+    and field bit for bit and its history to 1e-12 (float64 sums of dp^2
+    in another order), with one launch a sweep and a host check a sweep
+    (check_every_default 1: no sweep past the stop)."""
+    from cubez_tpu_torch.cuda_kernels import pcr_gs as p2
+    from cubez_tpu_torch.cuda_kernels import psor as p1
+
+    w = p1.psor_diag if name.startswith("psor") else p2.pcr_gs_diag
+    p = czt.Problem.poisson_cube(32, device=dev, maf=name.endswith("_maf"))
+    before = w.launches
+    r = czt.solve(p, name, omega=omega, itr_max=4000)
+    torch.cuda.synchronize()
+    assert w.launches - before == r.iters
+    rp = czt.solve(p, name, omega=omega, itr_max=4000, impl="plain")
+    torch.cuda.synchronize()
+    assert w.launches - before == r.iters  # the plain solve launches none
+    assert r.iters == rp.iters and r.res < 1e-5 and torch.equal(r.x, rp.x)
+    # the sums of dp^2, float64 on both sides, fold in another order
+    torch.testing.assert_close(r.history, rp.history, rtol=1e-12, atol=0)
+
+
+def test_diag_solvers_refuse_a_nonstandard_mask_on_cuda(dev):
+    """psor and pcr with a mask other than the standard one raise
+    ValueError before anything launches."""
+    import dataclasses
+
+    from cubez_tpu_torch.cuda_kernels import pcr_gs as p2
+    from cubez_tpu_torch.cuda_kernels import psor as p1
+
+    before = (p1.psor_diag.launches, p2.pcr_gs_diag.launches)
+    for name in ("psor", "pcr", "pcr_eda_maf"):
+        p = czt.Problem.poisson_cube(16, device=dev, maf=name.endswith("_maf"))
+        msk = p.msk.clone()
+        msk[5, 5, 5] = 0.0
+        with pytest.raises(ValueError, match="standard cube inner mask"):
+            czt.solve(dataclasses.replace(p, msk=msk), name, omega=1.1,
+                      itr_max=10)
+    assert (p1.psor_diag.launches, p2.pcr_gs_diag.launches) == before

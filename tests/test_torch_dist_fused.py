@@ -179,12 +179,19 @@ def test_dryrun_fused_proofs_at_32():
     ("sor2sma", {"sync": "pack", "dtype": torch.float64}, ValueError, "pack"),
 ])
 def test_unported_paths_raise(solver, kw, exc, match):
-    """What the JAX package reaches only through auto-SPMD (the exact
-    serial orders) and the extensions raise, naming the slice that brings
-    them; they never run the serial solver.  Bad options raise
+    """The extensions raise, naming the slice that brings them.  What the
+    JAX package reaches only through auto-SPMD (the exact serial orders,
+    slice 6) raised so until it was ported; it now runs the serial step on
+    the gathered field, the serial solve bit for bit.  Bad options raise
     ValueError."""
     p = czt.Problem.poisson_cube(N, dtype=kw.pop("dtype", torch.float32),
                                  device="cpu", maf=solver.endswith("_maf"))
+    if match == "slice 6":
+        rd = czt.solve_dist(p, _tmesh(N, (2, 2, 2)), solver, omega=1.0,
+                            itr_max=4, **kw)
+        rs = czt.solve(p, solver, omega=1.0, itr_max=4)
+        assert rd.iters == rs.iters == 4 and torch.equal(rd.x, rs.x)
+        return
     with pytest.raises(exc, match=match):
         czt.solve_dist(p, _tmesh(N, (2, 2, 2)), solver, omega=1.0, itr_max=4,
                        **kw)

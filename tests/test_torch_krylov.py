@@ -240,13 +240,18 @@ def test_precon_kernel_steps_divide_8():
     ("fd", "slice 7"),
 ])
 def test_unported_preconditioners_name_their_slice(solver, precond, where):
-    """pbicgstab refuses each unported name with its slice; cg refuses the
+    """pbicgstab refuses each unported name with its slice, and takes slice
+    6's names, which it refused so until they were ported; cg refuses the
     nonsymmetric ones first (ValueError, as the JAX package's cg) and fd,
     its symmetric one, with slice 7."""
     p = czt.Problem.poisson_cube(8, device="cpu")
     if solver == "cg" and precond != "fd":
         with pytest.raises(ValueError, match="symmetric"):
             czt.solve(p, solver, omega=1.0, itr_max=10, precond=precond)
+        return
+    if where == "slice 6":
+        r = czt.solve(p, solver, omega=1.0, itr_max=10, precond=precond)
+        assert r.res < 1e-5 and 0 < r.iters < 10
         return
     with pytest.raises(NotImplementedError, match=where):
         czt.solve(p, solver, omega=1.0, itr_max=10, precond=precond)

@@ -183,7 +183,14 @@ def test_write_history_byte_identical(tmp_path):
     ("mg", "slice 7"), ("fd", "slice 7"),
 ])
 def test_unported_solvers_name_their_slice(name, where):
-    prob = czt.Problem.poisson_cube(8, device="cpu")
+    """The extensions raise naming their slice; slice 6's names, which
+    raised so until it was ported, now solve (ten sweeps here)."""
+    prob = czt.Problem.poisson_cube(8, device="cpu", maf=name.endswith("_maf"))
+    if where == "slice 6":
+        r = czt.solve(prob, name, omega=1.0, itr_max=10)
+        assert r.iters == 10 and r.history.shape == (10,)
+        assert bool(torch.isfinite(r.x).all())
+        return
     with pytest.raises(NotImplementedError, match=where):
         czt.solve(prob, name, omega=1.0, itr_max=10)
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Variant of ``tools/ref_oracle.cpp`` whose jacobi, jacobi_maf, pcr_j_esa
-and pcr_rb_maf sweeps sum dp^2 in float64 (each float32 product rounded
-once, then added in double), and the float32 histories it writes.
+"""Variant of ``tools/ref_oracle.cpp`` whose jacobi, jacobi_maf, pcr_j_esa,
+pcr_rb_maf, psor, psor_maf, pcr and pcr_maf sweeps sum dp^2 in float64
+(each float32 product rounded once, then added in double), and the float32
+histories it writes.
 
 The reference keeps the sum of dp^2 of these sweeps in one REAL
-(cz_solver.f90:284-387 and 1473-1676, cz_maf.f90:131-282 and 442-668), so
+(cz_solver.f90:207-387 and 1473-1676, cz_maf.f90:23-282 and 442-668), so
 at 128^3 the float32 oracle adds two million terms into one float.  The
 PyTorch port's kernels sum a row or a line in float32 and fold those
 partials in float64, so its histories follow the float64 sum, not the
@@ -12,24 +13,27 @@ float one.  This script derives the variant from the oracle's source
 (two line edits in each of the four places, each checked to apply
 exactly once), builds it with g++ and writes:
 
-    python3 tools/ref_oracle_f64sum.py [--out tests/torch_ref_histories]
+    python3 tools/ref_oracle_f64sum.py [--out tests/torch_ref_histories] [solver ...]
 
     f32_jacobi_128_w0.8_f64sum.txt
     f32_jacobi_maf_128_w0.8_f64sum.txt
     f32_pcr_j_esa_128_w1.0_f64sum.txt
     f32_pcr_rb_maf_128_w1.5_f64sum.txt
+    f32_psor_128_w1.1_f64sum.txt
+    f32_psor_maf_128_w1.1_f64sum.txt
+    f32_pcr_128_w1.5_f64sum.txt
+    f32_pcr_maf_128_w1.5_f64sum.txt
 
-The edits:
+(the named solvers' runs only, when solvers are given).  The edits:
 
-* ``jacobi_sweep`` and ``jacobi_maf_sweep``: the whole sweep;
-* ``line_sweep``: its JACOBI branch (pcr_j_esa) only; the GS branch (pcr)
-  keeps its float sum, and the RB branch (pcr_rb) already sums in double;
+* ``jacobi_sweep``, ``jacobi_maf_sweep``, ``psor_sweep`` and
+  ``psor_maf_sweep``: the whole sweep;
+* ``line_sweep``: its JACOBI (pcr_j_esa) and GS (pcr) branches; the RB
+  branch (pcr_rb) already sums in double;
 * ``line_sweep_maf``: its accumulator is declared once for both branches,
   RB (pcr_rb_maf) and GS (pcr_maf), so the declaration becomes double for
-  both and the RB branch's addition is made explicit.  The GS branch then
-  adds its float product to a double too, which changes pcr_maf in this
-  variant; that is harmless, because the variant is only run for the
-  names in RUNS.
+  both (the GS branch then adds its float product to a double) and the RB
+  branch's addition is made explicit.
 
 The runs are independent serial processes, started together; the longest
 (pcr_j_esa, 4230 line-Jacobi iterations at 128^3) takes a few minutes on
@@ -47,7 +51,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 SOURCE = ROOT / "tools" / "ref_oracle.cpp"
 RUNS = (("jacobi", 128, "0.8"), ("jacobi_maf", 128, "0.8"),
-        ("pcr_j_esa", 128, "1.0"), ("pcr_rb_maf", 128, "1.5"))
+        ("pcr_j_esa", 128, "1.0"), ("pcr_rb_maf", 128, "1.5"),
+        ("psor", 128, "1.1"), ("psor_maf", 128, "1.1"),
+        ("pcr", 128, "1.5"), ("pcr_maf", 128, "1.5"))
 DECL, DECL64 = "Real res1 = 0;", "double res1 = 0;"
 ADD, ADD64 = "res1 += dp * dp;", "res1 += static_cast<double>(dp * dp);"
 
@@ -82,13 +88,17 @@ def _edit(text: str, part: str, edits) -> str:
 
 def variant_source(src: str) -> str:
     """The oracle's source with the float64 sums described above."""
-    for name in ("jacobi_sweep", "jacobi_maf_sweep"):
+    for name in ("jacobi_sweep", "jacobi_maf_sweep", "psor_sweep",
+                 "psor_maf_sweep"):
         body = _function(src, name)
         src = _edit(src, body, ((DECL, DECL64), (ADD, ADD64)))
     body = _function(src, "line_sweep")
     jac = _between(body, "if (mode == LineMode::JACOBI) {",
                    "if (mode == LineMode::GS) {")
     src = _edit(src, jac, ((DECL, DECL64), (ADD, ADD64)))
+    body = _function(src, "line_sweep")
+    gs = _between(body, "if (mode == LineMode::GS) {", "// RB: two colors")
+    src = _edit(src, gs, ((DECL, DECL64), (ADD, ADD64)))
     body = _function(src, "line_sweep_maf")
     src = _edit(src, body, ((DECL, DECL64),))
     body = _function(src, "line_sweep_maf")
@@ -99,7 +109,11 @@ def variant_source(src: str) -> str:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "tests" / "torch_ref_histories")
+    ap.add_argument("solvers", nargs="*", help="the runs to make (default: all)")
     args = ap.parse_args()
+    unknown = set(args.solvers) - {r[0] for r in RUNS}
+    if unknown:
+        ap.error(f"no run for {sorted(unknown)}")
     args.out.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
         cpp, exe = Path(tmp) / "ref_oracle_f64sum.cpp", Path(tmp) / "ref_oracle_f64sum"
@@ -108,6 +122,8 @@ def main():
         subprocess.run(["g++", "-O2", "-std=c++17", "-o", str(exe), str(cpp)], check=True)
         procs = []
         for solver, n, omega in RUNS:
+            if args.solvers and solver not in args.solvers:
+                continue
             out = args.out / f"f32_{solver}_{n}_w{omega}_f64sum.txt"
             procs.append((out, subprocess.Popen(
                 [str(exe), str(n), solver, "10000", omega, "--out", str(out)])))
