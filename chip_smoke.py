@@ -185,7 +185,21 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     count, history and field bit for bit); pbicgstab with psor at 64^3
     (16 P1 launches an iteration); the CLI ``124 124 124 pcr 10000 1.5``
     (the in-process count); and the wall, device time, device launches and
-    busy share a sweep of 200-sweep psor and pcr solve windows at 128^3.
+    busy share a sweep of 200-sweep psor and pcr solve windows at 128^3;
+21. the extensions (slice 7), each solve with the counts zeroed just before
+    and read just after: mg, mg_maf, fmg, fmg_maf, fd and fd_maf at 128^3
+    float32 (omega 1.0) at the JAX package's counts (JAX_EXT_128, tools/
+    jax_ext_counts.py) and Error max (rtol 1e-2), K4 launched for each
+    finest-level sweep of the V-cycles (none for fd) and no other kernel,
+    the field at the stop bitwise a plain-twin solve's on the card;
+    pbicgstab with mg and cg with fd at JAX's counts; solve_dist of mg and
+    fd over (2, 2, 2) (the serial count and field bit for bit); the CLI
+    ``128 128 128 fmg 100 1.0 --dump p.sph``, read back equal to the field;
+    mg's wall and device time a V-cycle, K4's share, device launches and
+    busy share; fd at 128^3 and 512^3 (one iteration, the same result bit
+    for bit after set_float32_matmul_precision("high")), its ms a solve
+    and the contraction's against its bound; mg at 512^3 (the plain-twin
+    solve's count and field).
 
 The line before the last is a JSON object with one entry per kernel
 variant (its bound: the larger of the bytes it must move over 3.35 TB/s
@@ -227,6 +241,22 @@ JAX_CLI_124 = {"pcr_rb": (1294, 9.358376e-03)}
 # trajectory, so the CLI's ``124 124 124 pcr_rb 10000 1.5 2 2 2`` is held
 # to these (count +-2%, Error max at ERR_RTOL), as phase 17 holds 64^3.
 JAX_DIST_CLI_124 = {"pcr_rb": (1317, 9.888023e-03)}
+# (Iter, res, Error max) of the JAX package's extensions at 128^3, float32,
+# eps 1e-5, omega 1.0, the field at the stopping iteration:
+# ``python3 tools/jax_ext_counts.py 128`` on the host's CPU printed these
+# (pbicgstab with the mg preconditioner, cg with fd: "solver+precond").
+# Phase 21 holds the port's counts to them exactly and Error max at
+# ERR_RTOL.
+JAX_EXT_128 = {
+    "mg": (6, 4.055880e-06, 3.550649e-04),
+    "mg_maf": (5, 5.478421e-06, 8.127093e-04),
+    "fmg": (2, 6.957753e-06, 6.577373e-04),
+    "fmg_maf": (1, 9.164844e-07, 1.873970e-04),
+    "fd": (1, 5.359026e-08, 3.597140e-05),
+    "fd_maf": (1, 5.381472e-08, 3.606081e-05),
+    "pbicgstab+mg": (3, 1.866319e-06, 4.249811e-05),
+    "cg+fd": (1, 3.213745e-07, 3.594160e-05),
+}
 ERR_RTOL = 1e-2
 # BiCGSTAB's last iterations amplify rounding about fivefold an iteration:
 # at 256^3 f64 the port's curve holds the oracle's to 3e-5 up to its last
@@ -2644,6 +2674,212 @@ def main():
         del p, prof
     print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
 
+    # ---- 21. the extensions (slice 7): mg, fmg and fd ------------------------
+    stamp(21)
+    t21 = time.perf_counter()
+    from cubez_tpu_torch.solvers import direct as fd_mod
+    from cubez_tpu_torch.utils.sph import read_sph
+
+    def k4_rb(c):
+        return c["k4_rb_color"] + c["k4_rb_color_maf"]
+
+    def fine_sweeps(r, name, precond=False):
+        """K4's launches in a solve: nu1 + nu2 = 2 a V-cycle; the driver
+        runs chunks of 2 cycles and replays an odd stop from its chunk's
+        start; fmg's F-cycle adds one fine V-cycle."""
+        if precond:  # two applications an iteration, one V-cycle each
+            return 4 * r.iters
+        cycles = r.iters + 2 * (r.iters % 2)
+        return 2 * cycles + (2 if name.startswith("fmg") else 0)
+
+    def ext_solve(p, name, **kw):
+        zero_counts()
+        t0 = time.perf_counter()
+        r = solve(p, name, omega=1.0, itr_max=100, **kw)
+        sync()
+        return r, read_counts(), time.perf_counter() - t0
+
+    # each name at 128^3 f32 with the counts zeroed just before and read
+    # just after: JAX's count (tools/jax_ext_counts.py), Error max at
+    # ERR_RTOL of JAX's, K4 launched for each fine sweep and no other
+    # kernel of the port, and the field at the stop bitwise a plain-twin
+    # solve's on the card
+    mg_launches = {}
+    ext_runs = {}
+    for name in ("mg", "mg_maf", "fmg", "fmg_maf", "fd", "fd_maf"):
+        p = Problem.poisson_cube(128, device=dev, maf=name.endswith("_maf"))
+        r, c, wall = ext_solve(p, name)
+        rp, _, _ = ext_solve(p, name, impl="plain")
+        j_iters, _, j_err = JAX_EXT_128[name]
+        e = err_max(p, r.x)
+        check(r.x.shape == (128,) * 3 and bool(torch.isfinite(r.x).all()),
+              f"{name} 128^3: field of the wrong shape or not finite")
+        check(r.iters == j_iters and r.res < 1e-5,
+              f"{name} 128^3: {r.iters} iterations (res {r.res}), JAX {j_iters}")
+        check(abs(e / j_err - 1) <= ERR_RTOL,
+              f"{name} 128^3: Error max {e}, JAX {j_err}")
+        want = 0 if name.startswith("fd") else fine_sweeps(r, name)
+        others = sum(v for k, v in c.items() if k not in ("k4_rb_color",
+                                                         "k4_rb_color_maf"))
+        check(k4_rb(c) == want and others == 0,
+              f"{name} 128^3: {k4_rb(c)} K4 launches (want {want}), "
+              f"{others} other launches")
+        check(rp.iters == r.iters and torch.equal(rp.x, r.x)
+              and torch.equal(rp.history, r.history),
+              f"{name} 128^3: not the plain-twin solve's field")
+        if want:
+            var = "k4_rb_color" + ("_maf" if name.endswith("_maf") else "")
+            mg_launches.setdefault(var, k4_rb(c))
+        ext_runs[name] = (r.iters, e, wall)
+        print(f"{name} 128^3 f32: {r.iters} iterations (JAX {j_iters}), res "
+              f"{r.res:e}, Error max {e:e} (JAX {j_err:e}), K4 launches "
+              f"{k4_rb(c)}, the plain-twin field bit for bit, wall "
+              f"{wall:.3f} s {tag}", flush=True)
+        del p, r, rp
+
+    # the Krylov solvers with the extensions as preconditioners at 128^3:
+    # JAX's counts; one V-cycle an application (4 K4 launches an iteration)
+    p = Problem.poisson_cube(128, device=dev)
+    for solver, precond in (("pbicgstab", "mg"), ("cg", "fd")):
+        r, c, wall = krylov(p, solver, precond, omega=1.0)
+        j_iters = JAX_EXT_128[f"{solver}+{precond}"][0]
+        want = fine_sweeps(r, precond, precond=True) if precond == "mg" else 0
+        check(r.iters == j_iters and r.res < 1e-5 and k4_rb(c) == want,
+              f"{solver} {precond} 128^3: {r.iters} iterations (JAX "
+              f"{j_iters}), res {r.res}, {k4_rb(c)} K4 launches")
+        print(f"{solver} {precond} 128^3 f32: {r.iters} iterations (JAX "
+              f"{j_iters}), res {r.res:e}, Error max {err_max(p, r.x):e}, K4 "
+              f"launches {k4_rb(c)}, wall {wall:.3f} s {tag}", flush=True)
+
+    # solve_dist over eight blocks on the card: the serial step on the
+    # gathered field, so the serial count and field bit for bit
+    cm128 = make_mesh((128,) * 3, devices=[dev] * 8, div=(2, 2, 2))
+    for name in ("mg", "fd"):
+        rs, _, _ = ext_solve(p, name)
+        zero_counts()
+        rd = solve_dist(p, cm128, name, omega=1.0, itr_max=100)
+        sync()
+        c = read_counts()
+        check(rd.iters == rs.iters and torch.equal(rd.x, rs.x)
+              and torch.equal(rd.history, rs.history),
+              f"solve_dist {name} 128^3: {rd.iters} iterations, serial "
+              f"{rs.iters}, or the field differs")
+        print(f"solve_dist {name} 128^3 f32 over (2, 2, 2): {rd.iters} "
+              f"iterations, the serial field bit for bit, K4 launches "
+              f"{k4_rb(c)} {tag}", flush=True)
+    del cm128, rs, rd
+
+    # the CLI: fmg with --dump, read back equal to the in-process field
+    r_fmg, _, _ = ext_solve(p, "fmg")
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "cubez_tpu_torch.cli", "128", "128", "128",
+             "fmg", "100", "1.0", "--dump", f"{tmp}/p.sph"], cwd=tmp, env=env,
+            capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"CLI fmg exited {proc.returncode}:\n"
+              f"{proc.stderr}")
+        check(f"Iter = {r_fmg.iters}  Res = " in proc.stdout,
+              f"CLI 128^3 fmg: not the in-process count {r_fmg.iters}")
+        field, _, _, step_, _ = read_sph(f"{tmp}/p.sph")
+        check(step_ == r_fmg.iters
+              and torch.equal(torch.from_numpy(field.copy()), r_fmg.x.cpu()),
+              "CLI 128^3 fmg --dump: the SPH field is not the solve's")
+        for ln in proc.stdout.splitlines():
+            if ln.startswith(("Iter =", "wall =", "Error max")):
+                print(f"CLI 128^3 fmg --dump: {ln.strip()}")
+    print(f"CLI 128^3 fmg --dump p.sph: read back equal to the field, step "
+          f"{step_} {tag}", flush=True)
+    del r_fmg
+
+    # mg's host cost: wall and device time a V-cycle at 128^3 (CUDA events,
+    # 20 cycles minus 4 after a warm-up, eps 1e-30: no stop), K4's share of
+    # the device time, device launches and busy share a cycle under
+    # torch.profiler
+    solve(p, "mg", omega=1.0, itr_max=4, eps=1e-30)  # warm-up
+    sync()
+    walls = {n_: min(events_ms(lambda: solve(p, "mg", omega=1.0, itr_max=n_,
+                                             eps=1e-30), 1) for _ in range(3))
+             for n_ in (4, 20)}
+    mg_wall_us = (walls[20] - walls[4]) / 16 * 1e3
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        solve(p, "mg", omega=1.0, itr_max=20, eps=1e-30)
+        sync()
+        wall = time.perf_counter() - t0
+    us = k4_us = n_ev = 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        t = ev.self_cuda_time_total if t is None else t
+        if t > 0:
+            us += t
+            n_ev += ev.count
+            if "rb_tile_kernel" in ev.key:
+                k4_us += t
+    check(us > 0 and k4_us > 0, "mg: the profiler recorded no device time")
+    mg_cycle = (mg_wall_us, us / 20, k4_us / us, n_ev / 20, us / 1e6 / wall)
+    print(f"timing mg 128^3 f32: wall {mg_wall_us:.1f} us a V-cycle (events, "
+          f"20 minus 4 cycles); under the profiler {us / 20:.1f} device us a "
+          f"cycle, K4 {k4_us / us:.3f} of it, {n_ev / 20:.1f} device launches "
+          f"and busy share {us / 1e6 / wall:.3f} a cycle {tag}", flush=True)
+    del p, prof
+
+    # fd: one solve (the step: residual, six matmuls, residual) and the
+    # contraction alone, at 128^3 and 512^3, against the contraction's
+    # bound: 6 products of 2 n^4 operations over the card's float32 peak,
+    # 12 passes over an inner field over its memory rate
+    fd_times = {}
+    for n in (128, 512):
+        p = Problem.poisson_cube(n, device=dev)
+        r, c, wall = ext_solve(p, "fd")
+        check(r.iters == 1 and r.res < 1e-5 and not any(c.values()),
+              f"fd {n}^3: {r.iters} iterations, res {r.res}")
+        prev = torch.backends.cuda.matmul.fp32_precision
+        try:
+            torch.set_float32_matmul_precision("high")
+            r_hi, _, _ = ext_solve(p, "fd")
+            check(torch.backends.cuda.matmul.fp32_precision == "tf32",
+                  "fd did not restore the caller's TF32 setting")
+        finally:
+            torch.backends.cuda.matmul.fp32_precision = prev
+        check(torch.equal(r_hi.x, r.x) and torch.equal(r_hi.history, r.history),
+              f"fd {n}^3: the result moved under TF32 matmul precision 'high'")
+        step = fd_mod.make_fd_step(p)
+        m = n - 2
+        tabs = [tuple(torch.tensor(a, dtype=f32, device=dev) for a in t)
+                for t in fd_mod._axis_tables(p.grid, None)]
+        rr = torch.rand((m,) * 3, device=dev, generator=dgen)
+        step(p.x0, p.rhs)  # warm-up
+        with fd_mod.ieee_fp32():
+            fd_mod.minv(rr, tabs)
+            c_ms = min(events_ms(lambda: fd_mod.minv(rr, tabs), 5)
+                       for _ in range(3))
+        s_ms = min(events_ms(lambda: step(p.x0, p.rhs), 3) for _ in range(3))
+        bms, by = bound(12 * 4 * m**3, 6 * 2 * m**4)
+        fd_times[n] = (s_ms, c_ms, bms, by)
+        print(f"fd {n}^3 f32: {r.iters} iteration, res {r.res:e}, Error max "
+              f"{err_max(p, r.x):e}, the same result bit for bit under "
+              f"set_float32_matmul_precision('high'); {s_ms:.3f} ms a solve, "
+              f"the contraction (six torch.matmul, IEEE FP32) {c_ms:.3f} ms "
+              f"against a bound of {bms:.3f} ms ({by}) {tag}", flush=True)
+        del p, r, r_hi, step, tabs, rr
+
+    # mg at 512^3 for its count: the plain-twin solve's count and field
+    p = Problem.poisson_cube(512, device=dev)
+    r, c, wall = ext_solve(p, "mg")
+    rp, _, _ = ext_solve(p, "mg", impl="plain")
+    check(r.iters == rp.iters and r.res < 1e-5 and torch.equal(r.x, rp.x)
+          and k4_rb(c) == fine_sweeps(r, "mg"),
+          f"mg 512^3: {r.iters} iterations (plain twin {rp.iters}), res "
+          f"{r.res}, {k4_rb(c)} K4 launches")
+    print(f"mg 512^3 f32: {r.iters} iterations (128^3: "
+          f"{ext_runs['mg'][0]}), res {r.res:e}, Error max "
+          f"{err_max(p, r.x):e}, the plain-twin field bit for bit, K4 launches "
+          f"{k4_rb(c)}, wall {wall:.3f} s {tag}", flush=True)
+    del p, r, rp
+    print(f"phase 21: {time.perf_counter() - t21:.1f} s", flush=True)
+
     rbpack_cu = "cubez_tpu_torch/csrc/rbpack.cu"
     sweeps_cu = "cubez_tpu_torch/csrc/sweeps.cu"
     rblines_cu = "cubez_tpu_torch/csrc/rblines.cu"
@@ -2740,6 +2976,9 @@ def main():
         if name in krylov_launches:
             # the launches of the 128^3 Krylov solves that precondition on it
             kernels[-1]["krylov_launches"] = krylov_launches[name]
+        if name in mg_launches:
+            # the launches of the 128^3 mg (mg_maf) solve's finest level
+            kernels[-1]["mg_launches"] = mg_launches[name]
         if name == "rb_sweeps_n_b":
             kernels[-1]["shape"] = [256] * 3
         if name in work512:

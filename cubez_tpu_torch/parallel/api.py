@@ -15,8 +15,9 @@ sync='overlap' and a non-standard mask, runs on parallel/dist.py.  The
 exact serial orders (psor, pcr, pcr_eda, pcr_esa and their MAF forms),
 which the JAX package reaches only through auto-SPMD with serial
 semantics, run their serial step on the gathered field
-(dist.make_gathered_step).  Every route drives the same convergence logic
-as the serial path.  The Krylov
+(dist.make_gathered_step), and so do the extensions mg, fmg, fd and their
+MAF forms, which the JAX package also runs through auto-SPMD.  Every route
+drives the same convergence logic as the serial path.  The Krylov
 solvers run their loops on the blocks (krylov.py), with these routes for
 their preconditioner.
 """
@@ -29,8 +30,9 @@ from typing import Optional
 import torch
 
 from ..core.problem import Problem
+from ..solvers.api import _initial_x
 from ..solvers.driver import EPS_DEFAULT, SolveResult, run_iterative
-from ..solvers.steps import DIAGONAL, KRYLOV, require_ported
+from ..solvers.steps import DIAGONAL, EXTENSIONS, KRYLOV, parse_name
 from . import dist_fused, dist_pack
 from .dist import make_dist_step, make_gathered_step
 from .krylov import solve_krylov_dist
@@ -82,7 +84,10 @@ def solve_dist(
     and run the serial step there (kernels P1 and P2 on the diagonal
     layout), so their counts and fields are the serial solve's bit for
     bit; ``sync`` is unused by them ('pack' raises), and a non-standard
-    mask raises ValueError, as serially.
+    mask raises ValueError, as serially.  mg, fmg and fd and their MAF
+    forms take the same route, gathered on the device of the problem's
+    fields: the serial step of solvers/multigrid.py (K4 on the finest
+    level) or solvers/direct.py, fmg from its F-cycle.
 
     The Krylov solvers ``pbicgstab``, ``pbicgstab_maf`` and ``cg`` run
     bicgstab.py's and cg.py's loops on the blocks (parallel/krylov.py):
@@ -100,7 +105,7 @@ def solve_dist(
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     if sync not in SYNCS:
         raise ValueError(f"sync must be one of {SYNCS}, not {sync!r}")
-    kind, is_maf = require_ported(solver)
+    kind, is_maf = parse_name(solver)
     g = problem.grid
     cmesh.block_shape(g.shape_kij)  # a grid the mesh does not divide
     if kind in KRYLOV:
@@ -125,10 +130,10 @@ def solve_dist(
         raise ValueError(
             "sync='pack' applies only to sor2sma in float32 with the standard "
             "mask; use sync='auto' to fall back to 'color'")
-    if kind in DIAGONAL:
+    if kind in DIAGONAL + EXTENSIONS:
         step, pre, post = make_gathered_step(mc_problem, cmesh, solver, omega,
                                              plain=plain)
-        result = run_iterative(step, cmesh.shard(problem.x0),
+        result = run_iterative(step, cmesh.shard(_initial_x(step, mc_problem)),
                                cmesh.shard(problem.rhs), g.res_normal, itr_max,
                                eps, check_every=check_every, pre=pre, post=post)
         x = cmesh.gather(result.x, device=problem.x0.device)

@@ -34,7 +34,8 @@ from ..ops import maf as maf_ops
 from ..ops import stencil
 from ..ops.pcr import num_stage, pcr_reduce_var
 from ..solvers.fused_cache import get_fused_step
-from ..solvers.steps import parse_name, require_standard_mask
+from ..solvers.steps import (EXTENSIONS, make_step, parse_name,
+                              require_standard_mask)
 from .halo import exchange_halo, pad_zeros, psum_all
 from .mesh import CubeMesh
 
@@ -277,25 +278,37 @@ def _make_dist_maf_step(problem: Problem, cmesh: CubeMesh, kind: str,
 
 
 def make_gathered_step(problem: Problem, cmesh: CubeMesh, name: str,
-                       omega: float, plain: bool = False):
-    """(step, pre, post) of an exact serial order (psor, pcr_gs and their
-    ``_maf`` forms, by ``name``) on a mesh, where the JAX package reaches
-    them only through auto-SPMD with serial semantics (its
-    parallel/api.py:187-225): ``pre`` gathers the blocks on the first
-    block's device and skews the field, the serial step of
-    ``get_fused_step`` (kernel P1 or P2, or with ``plain`` its twin) runs
-    there, and ``post`` unskews and shards the result back.  Counts and
-    fields are the serial solve's bit for bit.  ValueError for a
-    non-standard mask, as the serial step raises."""
-    require_standard_mask(problem, name)
+                       omega: float, plain: bool = False,
+                       b_arg_is_problem_rhs: bool = True):
+    """(step, pre, post) of a solver the JAX package reaches on a mesh only
+    through auto-SPMD with serial semantics (its parallel/api.py:187-225):
+    the exact serial orders (psor, pcr_gs) and the extensions (mg, fmg,
+    fd), with their ``_maf`` forms, by ``name``.  ``pre`` gathers the
+    blocks into one field, the serial step runs on it, and ``post`` shards
+    the result back; counts and fields are the serial solve's bit for bit.
+
+    psor and pcr_gs gather on the first block's device, into the diagonal
+    layout of their step of ``get_fused_step`` (kernel P1 or P2, or with
+    ``plain`` its twin).  The extensions gather on the device of the
+    problem's fields, where ``steps.make_step`` builds their step (K4 on
+    mg's finest level; ``plain`` and ``b_arg_is_problem_rhs`` as there).
+    ValueError for a non-standard mask, as the serial step raises."""
     kind, _ = parse_name(name)
-    step = get_fused_step(kind, problem.grid, omega, mc=problem.mc, plain=plain)
-    dev = cmesh.devices[0]
+    if kind in EXTENSIONS:
+        step = make_step(problem, name, omega, plain=plain,
+                         b_arg_is_problem_rhs=b_arg_is_problem_rhs)
+        dev, pad, unpad = problem.x0.device, None, None
+    else:
+        require_standard_mask(problem, name)
+        step = get_fused_step(kind, problem.grid, omega, mc=problem.mc,
+                              plain=plain)
+        dev, pad, unpad = cmesh.devices[0], step.pad, step.unpad
 
     def pre(blocks):
-        return step.pad(cmesh.gather(blocks, device=dev))
+        x = cmesh.gather(blocks, device=dev)
+        return x if pad is None else pad(x)
 
     def post(S):
-        return cmesh.shard(step.unpad(S))
+        return cmesh.shard(S if unpad is None else unpad(S))
 
     return step, pre, post

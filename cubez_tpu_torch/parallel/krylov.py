@@ -31,7 +31,7 @@ from ..cuda_kernels import dist_sweeps
 from ..ops import blas
 from ..ops import maf as maf_ops
 from ..solvers import steps as steps_mod
-from ..solvers.bicgstab import (VectorOps, check_precond, is_identity,
+from ..solvers.bicgstab import (VectorOps, is_identity, precon_plan,
                                 run_bicgstab, sweeps_precon)
 from ..solvers.cg import check_cg, run_cg
 from ..solvers.driver import SolveResult
@@ -88,12 +88,15 @@ def make_dist_precon(problem: Problem, cmesh: CubeMesh, precond, omega: float,
     """The preconditioner on block lists (see the module docstring)."""
     if is_identity(precond):
         return lambda v: v
-    kind = check_precond(precond)
+    precond, omega, sweeps = precon_plan(precond, omega)
+    kind, _ = steps_mod.parse_name(precond)
     pprob = dataclasses.replace(problem,
                                 mc=steps_mod.maf_coeffs(problem, precond))
-    if kind in steps_mod.DIAGONAL:
-        return sweeps_precon(*make_gathered_step(pprob, cmesh, precond, omega,
-                                                 plain=impl == "plain"))
+    if kind in steps_mod.DIAGONAL + steps_mod.EXTENSIONS:
+        return sweeps_precon(
+            *make_gathered_step(pprob, cmesh, precond, omega,
+                                plain=impl == "plain",
+                                b_arg_is_problem_rhs=False), sweeps=sweeps)
     step = None
     if (problem.grid.dtype == torch.float32 and problem.msk_is_standard()
             and (kind in dist_fused.LINE_KINDS or pprob.mc is None)):

@@ -9,11 +9,15 @@ solver dispatch of CZ::Evaluate, cz_Evaluate.cpp:414-489).
                    omega=1.1, itr_max=4000, precond="sor2sma")
     result = solve(Problem.poisson_cube(128, device="cuda"), "psor",
                    omega=1.1, itr_max=10000)
+    result = solve(Problem.poisson_cube(128, device="cuda"), "mg",
+                   omega=1.0, itr_max=100)
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from ..core.problem import Problem
 from . import steps as steps_mod
@@ -24,6 +28,24 @@ from .fused_cache import get_fused_step
 
 SOLVERS = steps_mod.ALL_SOLVERS
 IMPLS = ("auto", "plain")
+
+
+def _initial_x(step, problem: Problem):
+    """The solve's starting iterate: ``problem.x0``, or for a step with an
+    ``fmg_init`` (full multigrid) the F-cycle from the RHS.  The F-cycle
+    keeps x0's shell (the Dirichlet data of every level) and derives the
+    interior from the RHS, so an x0 with an interior (a restart) raises
+    ValueError instead of being thrown away; ``mg`` iterates from it."""
+    init = getattr(step, "fmg_init", None)
+    if init is None:
+        return problem.x0
+    if bool(torch.any(problem.x0 * problem.msk)):
+        raise ValueError(
+            "fmg derives its initial interior from the RHS and would "
+            "discard this problem's x0 interior; use 'mg' to iterate "
+            "from a custom or restarted x0"
+        )
+    return init(problem.rhs)
 
 
 def solve(
@@ -59,6 +81,13 @@ def solve(
     kernel's failure: a CUDA kernel that fails to build or launch raises.
     The kernels' launch counters show that none ran.
 
+    The extensions (solvers/multigrid.py, solvers/direct.py) run the step
+    of ``steps.make_step``, standard mask only: ``mg``, ``fmg`` and their
+    ``_maf`` forms a V-cycle an iteration, the finest level on K4 (its
+    plain twin with 'plain'), the rest plain torch; ``fd``/``fd_maf`` one
+    direct solve an iteration (six FP32 matmuls).  ``fmg`` starts from its
+    F-cycle (``_initial_x``).
+
     The Krylov drivers ``pbicgstab``/``pbicgstab_maf`` (solvers/
     bicgstab.py) and ``cg`` (solvers/cg.py) run their loop with one host
     sync an iteration; ``precond`` names the relaxation solver of their
@@ -70,7 +99,7 @@ def solve(
     Krylov loops check every iteration)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
-    kind, _ = steps_mod.require_ported(solver)
+    kind, _ = steps_mod.parse_name(solver)
     mc = steps_mod.maf_coeffs(problem, solver)
     g = problem.grid
     if kind in steps_mod.KRYLOV:
@@ -79,6 +108,11 @@ def solve(
         else:
             run = make_bicgstab(problem, solver, omega, precond, impl)
         result = run(problem.x0, problem.rhs, itr_max, eps, g.res_normal)
+    elif kind in steps_mod.EXTENSIONS:
+        step = steps_mod.make_step(problem, solver, omega, plain=impl == "plain")
+        result = run_iterative(step, _initial_x(step, problem), problem.rhs,
+                               g.res_normal, itr_max, eps,
+                               check_every=check_every)
     else:
         step = pre = post = None
         if problem.msk_is_standard():

@@ -9,8 +9,9 @@ an iteration, against BiCGSTAB's 2, 2 and 5.
 
 CG needs a symmetric positive-definite preconditioner.  A fixed number of
 damped-Jacobi sweeps from a zero start is a polynomial in A (D = 6 I), so
-it is admissible; the red-black and line sweeps are not symmetric and are
-refused.  The sweeps are linear in b from a zero start, so -precon(-r) ==
+it is admissible, and so is one application of fd, the exact inverse
+(solvers/direct.py); the red-black and line sweeps are not symmetric and
+are refused.  The sweeps are linear in b from a zero start, so -precon(-r) ==
 precon(r) and the negated system needs no sign plumbing.  The loop runs on
 the host with one host sync an iteration, as bicgstab.py's, over the same
 ``VectorOps``.
@@ -29,7 +30,6 @@ from .bicgstab import (FLT_MIN, VectorOps, _guard, fetch, is_identity,
 from .driver import SolveResult
 
 # preconditioners that are symmetric for the constant-coefficient operator
-# (fd, the exact fast-diagonalization inverse, is slice 7's)
 SYMMETRIC_PRECONDS = ("jacobi", "fd")
 
 

@@ -8,12 +8,14 @@ the reference CLI, cz_Evaluate.cpp:684-803).  This port runs ``sor2sma``,
 kinds ``psor`` and ``pcr_gs`` (``pcr``, ``pcr_eda``, ``pcr_esa``; standard
 mask only), their ``_maf`` forms, and the Krylov drivers ``pbicgstab``,
 ``pbicgstab_maf`` (solvers/bicgstab.py) and ``cg`` (solvers/cg.py) with
-those sweeps as preconditioners; the extensions mg, fmg and fd, as a solver
-or a preconditioner, raise ``NotImplementedError`` naming the slice of
-ROADMAP.md that brings them.
+those sweeps as preconditioners, and the extensions ``mg``, ``fmg``
+(solvers/multigrid.py) and ``fd`` (solvers/direct.py) and their ``_maf``
+forms, as solvers and as preconditioners: every name the JAX package runs.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..core.problem import Problem
 from ..cuda_kernels import lines
@@ -22,6 +24,8 @@ from ..ops import maf as maf_ops
 from ..ops import stencil
 from ..ops.pcr_gs import make_pcr_gs_diag_step
 from ..ops.psor_scan import make_psor_diag_step
+from .direct import make_fd_step
+from .multigrid import make_mg_step
 
 # canonical kind per CLI solver name (see cubez_tpu/solvers/steps.py for
 # the evidence behind each mapping)
@@ -45,14 +49,6 @@ ALL_SOLVERS = RELAX_SOLVERS + tuple(
 # reference-parity registry
 EXTENSION_SOLVERS = ("mg", "mg_maf", "fmg", "fmg_maf", "fd", "fd_maf", "cg")
 
-# where each solver kind lands in ROADMAP.md's queue of slices
-_SLICE = {
-    "mg": "slice 7 (extensions)",
-    "fmg": "slice 7 (extensions)",
-    "fd": "slice 7 (extensions)",
-}
-
-
 def parse_name(name: str):
     n = name.lower()
     is_maf = n.endswith("_maf")
@@ -75,19 +71,8 @@ def parse_name(name: str):
 KRYLOV = ("pbicgstab", "cg")
 # the exact serial orders: steps on the diagonal layout, standard mask only
 DIAGONAL = ("psor", "pcr_gs")
-PORTED = ("sor2sma", "jacobi", "pcr", "pcr_rb") + DIAGONAL + KRYLOV
-
-
-def require_ported(name: str):
-    """(kind, is_maf) for a solver this port runs; NotImplementedError
-    naming its slice for any other."""
-    kind, is_maf = parse_name(name)
-    if kind in PORTED:
-        return kind, is_maf
-    raise NotImplementedError(
-        f"solver '{name}' is not ported to PyTorch yet: {_SLICE[kind]} of "
-        "ROADMAP.md"
-    )
+# the extensions: steps of their own (steps.make_step), standard mask only
+EXTENSIONS = ("mg", "fmg", "fd")
 
 
 def require_standard_mask(problem: Problem, name: str):
@@ -109,7 +94,8 @@ def maf_coeffs(problem: Problem, name: str):
     return problem.mc
 
 
-def make_step(problem: Problem, name: str, omega: float):
+def make_step(problem: Problem, name: str, omega: float, plain: bool = False,
+              b_arg_is_problem_rhs: bool = True):
     """``step(x, b) -> (x_new, r2)`` on the unpacked (K, I, J) layout: the
     plain masked sweep of ops/stencil.py or ops/maf.py, or the line twins
     of cuda_kernels/lines.py with the mask.  It carries the problem's own
@@ -117,8 +103,19 @@ def make_step(problem: Problem, name: str, omega: float):
     written.  The exact serial orders (psor, pcr_gs) take the standard mask
     only, as the JAX package's steps do (ValueError for another): theirs is
     the plain twin on the diagonal layout, with ``pad``/``unpad``.
-    ValueError for the Krylov drivers, which are not sweeps."""
-    kind, _ = require_ported(name)
+    ValueError for the Krylov drivers, which are not sweeps.
+
+    The extensions take the standard mask only (ValueError for another, as
+    the JAX package's make_step raises): ``fd``/``fd_maf`` the direct step
+    of solvers/direct.py, ``mg``/``fmg`` and their ``_maf`` forms the
+    V-cycle of solvers/multigrid.py, whose finest level runs K4 for CUDA
+    tensors unless ``plain``.  ``mg_maf`` takes only MafCoeffs equal to
+    those of the grid's own coordinates (the levels derive their operators
+    from them).  ``b_arg_is_problem_rhs``: the caller drives the step with
+    the problem's own RHS, so a zero inner RHS lets K4 skip b; a
+    preconditioner, which drives it with Krylov vectors, passes False.
+    fmg's Dirichlet shell is ``problem.x0``'s."""
+    kind, _ = parse_name(name)
     if kind == "pbicgstab":
         raise ValueError("pbicgstab is a driver, not a sweep; see bicgstab.py")
     if kind == "cg":
@@ -126,6 +123,24 @@ def make_step(problem: Problem, name: str, omega: float):
     mc = maf_coeffs(problem, name)
     g = problem.grid
     msk = problem.msk
+    if kind == "fd":
+        # a non-standard mask breaks the separability of the operator
+        require_standard_mask(problem, "fd")
+        return make_fd_step(problem, maf=mc is not None)
+    if kind in ("mg", "fmg"):
+        # the levels' masks come from the grid alone
+        require_standard_mask(problem, "mg")
+        if mc is not None:
+            ref = type(mc).from_coords(g.xc, g.yc, g.zc)
+            if not all(torch.equal(getattr(mc, f), getattr(ref, f))
+                       for f in maf_ops.FIELDS):
+                raise ValueError("mg_maf requires MafCoeffs built from the "
+                                 "grid's own coordinate arrays")
+        return make_mg_step(
+            g, omega=omega, plain=plain,
+            b_is_zero=b_arg_is_problem_rhs and problem.rhs_is_inner_zero(),
+            maf=mc is not None, fmg=kind == "fmg",
+            bc_shell=problem.x0 * (1.0 - msk) if kind == "fmg" else None)
     if kind in DIAGONAL:
         require_standard_mask(problem, name)
         build = make_psor_diag_step if kind == "psor" else make_pcr_gs_diag_step

@@ -54,11 +54,45 @@ def test_cli_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,where", [
     (["--profile"], "slice 8"), (["--dump", "f.sph"], "slice 7"),
 ])
-def test_cli_later_slices_raise(extra, where, tmp_path, monkeypatch):
-    """Options of later slices raise naming their slice."""
+def test_cli_later_slices_raise(extra, where, tmp_path, monkeypatch, capsys):
+    """--profile raises naming slice 8.  --dump, which raised naming slice
+    7 until it was ported, writes the field as SPH: the bytes of the JAX
+    package's writer for the same field, pitch and step."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=where):
-        main(["8", "8", "8", "pcr_rb", "10", "1.5", "--device", "cpu"] + extra)
+    argv = ["8", "8", "8", "pcr_rb", "10", "1.5", "--device", "cpu"] + extra
+    if where == "slice 8":
+        with pytest.raises(NotImplementedError, match=where):
+            main(argv)
+        return
+    assert main(argv) == 0
+    assert "f.sph written" in capsys.readouterr().out
+    from cubez_tpu.utils.native import write_sph as j_write_sph
+    from cubez_tpu_torch.utils.sph import read_sph
+
+    field, _, pitch, step, _ = read_sph(tmp_path / "f.sph")
+    p = 1.0 / 7
+    j_write_sph(tmp_path / "j.sph", field, pitch=(p, p, p), step=step)
+    assert (tmp_path / "f.sph").read_bytes() == (tmp_path / "j.sph").read_bytes()
+    assert field.shape == (8, 8, 8) and 0 < step <= 10
+    np.testing.assert_allclose(pitch, (p, p, p), rtol=1e-7)
+
+
+@pytest.mark.parametrize("name", ["mg", "fmg_maf", "fd"])
+def test_cli_extensions_run(name, tmp_path, monkeypatch, capsys):
+    """mg, fmg and fd through the CLI, serial and over a (2, 2, 2)
+    division: the serial count (solve_dist runs the serial step on the
+    gathered field) and the history file."""
+    for sub, more in (("serial", []), ("dist", ["2", "2", "2"])):
+        d = tmp_path / sub
+        d.mkdir()
+        monkeypatch.chdir(d)
+        assert main(["16", "16", "16", name, "100", "1.0", *more,
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    iters = [ln for ln in out.splitlines() if ln.startswith("Iter = ")]
+    assert len(iters) == 2 and iters[0] == iters[1]
+    rows = (tmp_path / "dist" / f"{name}.txt").read_text().splitlines()
+    assert len(rows) == int(iters[0].split()[2]) + 1
 
 
 @pytest.mark.parametrize("extra,div", [

@@ -1515,3 +1515,50 @@ def test_diag_solvers_refuse_a_nonstandard_mask_on_cuda(dev):
             czt.solve(dataclasses.replace(p, msk=msk), name, omega=1.1,
                       itr_max=10)
     assert (p1.psor_diag.launches, p2.pcr_gs_diag.launches) == before
+
+
+def test_mg_results_are_their_own_on_cuda(dev):
+    """Two mg preconditioner applications: the first result stays intact,
+    though the finest level's K4 alternates between two buffers of its own
+    that the second application rewrites; a solve's field is not
+    rewritten by a later solve either."""
+    from cubez_tpu_torch.solvers import bicgstab
+
+    p = czt.Problem.poisson_cube(20, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    v, w = (torch.rand((20,) * 3, device=dev, generator=gen) * p.msk
+            for _ in range(2))
+    pre = bicgstab.make_precon(p, "mg", 1.0)
+    first = pre(v)
+    kept = first.clone()
+    pre(w)
+    assert torch.equal(first, kept)
+    r1 = czt.solve(p, "mg", omega=1.0, itr_max=3)
+    x1 = r1.x.clone()
+    import dataclasses
+
+    czt.solve(dataclasses.replace(p, x0=r1.x), "mg", omega=1.0, itr_max=3)
+    assert torch.equal(r1.x, x1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mg_fine_level_runs_k4_in_both_dtypes(dev, dtype):
+    """On CUDA mg's finest level smooths on K4 in float32 and float64, nu1 +
+    nu2 = 2 launches a V-cycle and never its twin: a departure from the
+    JAX package, which picks its fused smoother for float32 on a TPU only,
+    so that no plain twin runs on the card's path.  The field equals a
+    plain-twin solve's bit for bit (float32) or to 1e-13."""
+    p = czt.Problem.poisson_cube(40, dtype=dtype, device=dev)
+    k4.sor2sma_k4.launches = 0
+    r = czt.solve(p, "mg", omega=1.0, itr_max=100)
+    torch.cuda.synchronize()
+    # chunks of check_every_default = 2 cycles, and the replay of an odd
+    # stop from its chunk's start (driver.run_iterative)
+    cycles = r.iters + 2 * (r.iters % 2)
+    assert k4.sor2sma_k4.launches == 2 * cycles
+    rp = czt.solve(p, "mg", omega=1.0, itr_max=100, impl="plain")
+    assert rp.iters == r.iters
+    if dtype == torch.float32:
+        assert torch.equal(rp.x, r.x)
+    else:
+        torch.testing.assert_close(rp.x, r.x, rtol=0, atol=1e-13)

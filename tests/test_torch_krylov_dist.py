@@ -139,11 +139,11 @@ def test_dist_precon_result_is_its_own(precond):
     ("pbicgstab", {"precond": "sor2sma", "sync": "overlap"}, ValueError, "sync"),
 ])
 def test_solve_dist_krylov_refusals(solver, kw, exc, match):
-    """Bad options and unported preconditioners raise.  psor, which raised
-    naming slice 6 until it was ported, now preconditions the blocks'
-    solve (its serial step on the gathered vector)."""
+    """Bad options raise.  psor and mg, which raised naming slices 6 and 7
+    until they were ported, now precondition the blocks' solve (their
+    serial step on the gathered vector; mg one V-cycle)."""
     p = czt.Problem.poisson_cube(8, device="cpu")
-    if match == "slice 6":
+    if match in ("slice 6", "slice 7"):
         r = czt.solve_dist(p, _mesh((2, 2, 2), 8), solver, omega=1.0,
                            itr_max=10, **kw)
         assert r.res < 1e-5 and 0 < r.iters < 10
