@@ -199,11 +199,26 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     busy share; fd at 128^3 and 512^3 (one iteration, the same result bit
     for bit after set_float32_matmul_precision("high")), its ms a solve
     and the contraction's against its bound; mg at 512^3 (the plain-twin
-    solve's count and field).
+    solve's count and field);
+22. the perf layer (slice 8, cubez_tpu_torch/perf): the CLI ``128 128 128
+    sor2sma 10000 1.5 --profile``, serial (1813 iterations; profiling.txt's
+    sor2sma_sweep, driver_overhead and solve_total rows with calls and
+    seconds, the sweep's %SoL against the card's table entry) and over
+    ``2 2 2`` (the pack route: the halo_exchange and residual_allreduce
+    COMM rows with bytes, sor2sma_block_sweep); torch's peak memory over a
+    512^3 sor2sma solve against perf/memory.py's model (printed, with the
+    ratio); profile_solve's 512^3 sweep time an iteration within
+    TIMER_RTOL of phase 12's; weak scaling of 128^3 sor2sma blocks, 1 to 8
+    on the card, every point on the kernels' route; a 128^3 solve under
+    torch.profiler: its ``sor2sma`` label ranges hold the runtime launches
+    of its K1/K3 kernels, and a solve with no profiler on never enters the
+    label (``steps.labeled.entered``).
 
 The line before the last is a JSON object with one entry per kernel
-variant (its bound: the larger of the bytes it must move over 3.35 TB/s
-and its operations over 67 TFLOP/s, float32 outside the tensor cores); the
+variant (its bound: the larger of the bytes it must move over the card's
+HBM rate and its operations over its float32 rate outside the tensor cores,
+from its entry in cubez_tpu_torch/perf/pmlib.py's table: 3.35 TB/s and 67
+TFLOP/s on the H100 SXM); the
 last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -282,9 +297,12 @@ LINE_EDGES = ((4, 22, 45), (5, 21, 37), (39, 9, 70), (130, 14, 97))
 # copies), one tile and several, odd packed rows, a tall region
 RBN_EDGES = ((6, 10, 9), (5, 12, 14), (16, 16, 16), (40, 22, 46),
              (24, 130, 70))
-# the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
-HBM_BYTES_S = 3.35e12
-F32_FLOPS_S = 67e12
+# the card's peaks for the bounds: its entry in the port's table
+# (cubez_tpu_torch/perf/pmlib.py, NVIDIA's data sheets; the H100 SXM's
+# 3.35 TB/s and 67 TFLOP/s), set by main() from the card it runs on
+HBM_BYTES_S = F32_FLOPS_S = None
+# phase 22: the 512^3 sweep time of profile_solve against phase 12's
+TIMER_RTOL = 0.25
 
 
 def bound(nbytes, flops):
@@ -302,6 +320,163 @@ def check(cond, msg):
 def load_history(name, where=HIST):
     rows = (where / name).read_text().splitlines()[1:]
     return [float(r.split(",")[1]) for r in rows]
+
+
+def profile_rows(path):
+    """{label: (type, calls, seconds, GB/s, %SoL or "")} of the section
+    rows of a profiling.txt (perf/pmlib.py's report)."""
+    lines = path.read_text().splitlines()
+    dashes = [i for i, ln in enumerate(lines) if ln and set(ln) == {"-"}]
+    check(len(dashes) == 2, f"{path}: not a profiling report")
+    rows = {}
+    for ln in lines[dashes[0] + 1:dashes[1]]:
+        f = ln.split()
+        rows[f[0]] = (f[1], int(f[2]), float(f[3]), float(f[5]), ln[72:].strip())
+    return rows
+
+
+def perf_phase(ms_512, tag, env, zero_counts, read_counts):
+    """Phase 22, the perf layer on the card: the CLI's --profile serial and
+    over 2 2 2 at 128^3, profile_solve's 512^3 sweep time against phase
+    12's (``ms_512`` a sor2sma iteration), the memory model against
+    torch's peak, weak scaling of eight blocks on the card, and the solver
+    label around a solve's launches under torch.profiler (and never
+    entered without a profiler, by its counter)."""
+    import gc
+
+    import torch
+
+    from cubez_tpu_torch import Problem, solve
+    from cubez_tpu_torch.perf import memory as perf_memory
+    from cubez_tpu_torch.perf import scaling as perf_scaling
+    from cubez_tpu_torch.perf.profile import profile_solve
+    from cubez_tpu_torch.solvers import steps as steps_mod
+
+    dev = torch.device("cuda", 0)
+    hbm_gbps = HBM_BYTES_S / 1e9
+
+    # the CLI with --profile: serial, and over 2 2 2 (the pack route)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for label, gdv in (("serial", ()), ("dist", ("2", "2", "2"))):
+            d = Path(tmp) / label
+            d.mkdir()
+            procs.append((label, d, subprocess.Popen(
+                [sys.executable, "-m", "cubez_tpu_torch.cli", "128", "128",
+                 "128", "sor2sma", "10000", "1.5", *gdv, "--profile"],
+                cwd=d, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        rows = {}
+        for label, d, proc in procs:
+            out, errs_ = proc.communicate(timeout=300)
+            check(proc.returncode == 0,
+                  f"CLI --profile {label} exited {proc.returncode}:\n{errs_}")
+            check("Iter = 1813  Res = " in out and "profiling.txt written" in out,
+                  f"CLI --profile {label}: not 1813 iterations, or no report")
+            print(f"CLI 128^3 sor2sma {label} --profile, profiling.txt {tag}:\n"
+                  + (d / "profiling.txt").read_text(), flush=True)
+            rows[label] = profile_rows(d / "profiling.txt")
+    serial, dist = rows["serial"], rows["dist"]
+    for lab in ("sor2sma_sweep", "driver_overhead", "solve_total"):
+        check(lab in serial and serial[lab][1] > 0 and serial[lab][2] > 0,
+              f"CLI --profile: no {lab} row with calls and seconds")
+    kind, calls, secs, gbps, sol = serial["sor2sma_sweep"]
+    check(sol and abs(float(sol) - 100 * gbps / hbm_gbps) <= 0.1 + 5e-3 * gbps,
+          f"CLI --profile: sor2sma_sweep %SoL {sol!r} is not {gbps} GB/s "
+          f"against the table's {hbm_gbps}")
+    print(f"128^3 sor2sma_sweep: {gbps} GB/s, {sol}% of the table's "
+          f"{hbm_gbps:.0f} GB/s (the field lives in the L2: printed, not "
+          f"checked) {tag}", flush=True)
+    for lab, want in (("halo_exchange", "COMM"), ("residual_allreduce", "COMM"),
+                      ("sor2sma_block_sweep", "CALC")):
+        check(lab in dist and dist[lab][0] == want and dist[lab][1] > 0,
+              f"CLI --profile over 2 2 2: no {want} row {lab}")
+    for lab in ("halo_exchange", "residual_allreduce"):
+        check(dist[lab][4] != "", f"CLI --profile over 2 2 2: {lab} has no "
+              "bytes (no %SoL)")
+
+    # memory: the model's fields against torch's peak around a 512^3 solve
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    p512 = Problem.poisson_cube(512, device=dev)
+    r = solve(p512, "sor2sma", omega=OMEGA, itr_max=20000)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    model = perf_memory.memory_requirement((512,) * 3, "sor2sma")["total_bytes"]
+    check(r.iters == 5787, f"512^3 solve: {r.iters} iterations")
+    check(peak > 0 and model > 0, "memory: no bytes")
+    print(f"memory 512^3 sor2sma: {perf_memory.report((512,) * 3, 'sor2sma')}; "
+          f"torch peak over the problem and its solve {peak / 1e9:.4f} GB, "
+          f"ratio {peak / model:.4f} {tag}", flush=True)
+    del r
+
+    # two timers: profile_solve's sweep section against phase 12's events
+    pm = profile_solve(p512, "sor2sma", OMEGA, iters=50)
+    print(f"profile_solve 512^3 sor2sma {tag}:\n{pm.report()}", flush=True)
+    sw = pm.sections["sor2sma_sweep"]
+    ms_prof = sw.seconds / sw.calls * 1e3
+    check(abs(ms_prof / ms_512 - 1) <= TIMER_RTOL,
+          f"512^3 sweep: profile_solve {ms_prof:.4f} ms an iteration, phase "
+          f"12 {ms_512:.4f}")
+    print(f"two timers 512^3 sor2sma: profile_solve {ms_prof * 1e3:.3f} us an "
+          f"iteration, phase 12 {ms_512 * 1e3:.3f} (ratio "
+          f"{ms_prof / ms_512:.4f}); {sw.gbps:.1f} GB/s, "
+          f"{100 * sw.gbps / hbm_gbps:.1f}% of {hbm_gbps:.0f} GB/s {tag}",
+          flush=True)
+    del p512, pm
+
+    # weak scaling: 128^3 blocks, 1 to 8 of them on the one card
+    pts = perf_scaling.weak_scaling(block=128, solver="sor2sma", omega=OMEGA,
+                                    device_counts=[1, 2, 4, 8],
+                                    devices=["cuda:0"] * 8)
+    check(all(p.step_impl == "fused" for p in pts),
+          f"weak scaling: routes {[p.step_impl for p in pts]}")
+    print(f"weak scaling, 128^3 blocks on one card (the mesh's cost on the "
+          f"card, not scaling) {tag}:\n{perf_scaling.report(pts)}", flush=True)
+
+    # the label: its ranges hold the solve's launches under the profiler
+    p = Problem.poisson_cube(128, device=dev)
+    solve(p, "sor2sma", omega=OMEGA, itr_max=30)  # warm
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    zero_counts()
+    with torch.profiler.profile(activities=acts) as prof:
+        r = solve(p, "sor2sma", omega=OMEGA, itr_max=10000)
+        torch.cuda.synchronize()
+    cnt = read_counts()
+    ours = cnt["rb_sweeps_n"] + cnt["rb_single"]
+    check(r.iters == 1813, f"profiled solve: {r.iters} iterations")
+    # the host's label ranges (the profiler also marks them on the card's
+    # timeline), the runtime launch calls, and the K1/K3 kernels on the
+    # card, each linked to its launch call by the correlation id
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    evs = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end) for e in evs
+              if e.name == "sor2sma" and e.device_type == cpu]
+    check(ranges, "no sor2sma event under torch.profiler")
+    launches = {e.id: e for e in evs if e.device_type == cpu
+                and e.name.startswith("cu") and "Launch" in e.name}
+    kernels = [e for e in evs if e.device_type == cuda
+               and "sweeps_kernel" in e.name]
+    linked = [launches[k.id] for k in kernels if k.id in launches]
+    inside = [e for e in linked if any(
+        a <= e.time_range.start and e.time_range.end <= b for a, b in ranges)]
+    print(f"labels: {len(ranges)} sor2sma ranges on the host; {len(kernels)} "
+          f"K1/K3 kernels on the card, {len(linked)} linked to their launch "
+          f"calls, {len(inside)} of those inside the ranges; the wrappers "
+          f"counted {ours} launches {tag}", flush=True)
+    check(ours > 0 and len(kernels) == ours,
+          f"profiled solve: {len(kernels)} K1/K3 kernels, {ours} launches counted")
+    check(len(inside) == len(linked) == ours,
+          f"{ours} launches: {len(linked)} linked, {len(inside)} inside the "
+          "sor2sma ranges")
+    before = steps_mod.labeled.entered
+    r = solve(p, "sor2sma", omega=OMEGA, itr_max=10000)
+    check(r.iters == 1813 and steps_mod.labeled.entered == before,
+          "a solve with no profiler on entered the label")
 
 
 def card_line():
@@ -339,10 +514,18 @@ def main():
     from cubez_tpu_torch.solvers.driver import fixed_sweeps
     from cubez_tpu_torch.solvers.fused_cache import get_fused_step
 
+    from cubez_tpu_torch.perf import pmlib
+
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
     f32, f64 = torch.float32, torch.float64
     t_start = time.perf_counter()
+    global HBM_BYTES_S, F32_FLOPS_S
+    hbm_gbps, f32_gflops = (pmlib.device_hbm_gbps(dev),
+                            pmlib.device_peak_gflops(dev, f32))
+    check(hbm_gbps and f32_gflops, f"{torch.cuda.get_device_name(dev)} has no "
+          "entry in cubez_tpu_torch/perf/pmlib.py's table")
+    HBM_BYTES_S, F32_FLOPS_S = hbm_gbps * 1e9, f32_gflops * 1e9
 
     # each wrapper counts its launches, and separately its MAF launches; a
     # kernel variant is a wrapper's constant or MAF form
@@ -2879,6 +3062,13 @@ def main():
           f"{k4_rb(c)}, wall {wall:.3f} s {tag}", flush=True)
     del p, r, rp
     print(f"phase 21: {time.perf_counter() - t21:.1f} s", flush=True)
+
+    # ---- 22. the perf layer (slice 8) ------------------------------------------
+    stamp(22)
+    t22 = time.perf_counter()
+    perf_phase(timing[("sor2sma", "kernel", 512)], tag, env, zero_counts,
+               read_counts)
+    print(f"phase 22: {time.perf_counter() - t22:.1f} s", flush=True)
 
     rbpack_cu = "cubez_tpu_torch/csrc/rbpack.cu"
     sweeps_cu = "cubez_tpu_torch/csrc/sweeps.cu"

@@ -13,16 +13,23 @@ package ``cubez_tpu`` beside it is the reference it is tested against.
     # the same solve over a (2, 2, 2) block mesh, eight blocks on one card
     cm = czt.make_mesh(prob.grid.shape_kij, devices=["cuda:0"] * 8)
     r = czt.solve_dist(prob, cm, "sor2sma", omega=1.5, itr_max=10000)
+
+    # the PMlib-style profile of the solve's step (the CLI's --profile)
+    from cubez_tpu_torch.perf.profile import profile_solve
+    print(profile_solve(prob, "sor2sma", omega=1.5).report())
 """
 
 from .core.grid import Grid, max_error, max_error_loc
 from .core.problem import Problem
 from .parallel import CubeMesh, make_mesh, solve_dist
 from .solvers.api import SOLVERS, solve
-from .solvers.driver import SolveResult
+from .solvers.driver import EPS_DEFAULT, SolveResult
+
+__version__ = "0.3.0"
 
 __all__ = [
     "CubeMesh",
+    "EPS_DEFAULT",
     "Grid",
     "Problem",
     "SOLVERS",
@@ -32,4 +39,5 @@ __all__ = [
     "max_error_loc",
     "solve",
     "solve_dist",
+    "__version__",
 ]

@@ -2,7 +2,8 @@
 
     python -m cubez_tpu_torch.cli gsz_x gsz_y gsz_z solver ItrMax coef \\
         [precond] [gdv_x gdv_y gdv_z] [--dist] [--fp64] [--eps E] \\
-        [--device cuda|cpu] [--impl auto|plain] [--dump FILE.sph]
+        [--device cuda|cpu] [--impl auto|plain] [--profile] \\
+        [--dump FILE.sph]
 
 A process division ``gdv_x gdv_y gdv_z`` (or ``--dist``, the automatic
 division) runs ``solve_dist`` over a block mesh, for every solver the port
@@ -15,7 +16,14 @@ Writes ``<solver>.txt`` (cz_Evaluate.cpp:210-218), prints the iteration and
 residual banner (cz_Evaluate.cpp:492-496) and the analytic ``Error max``
 check (cz_Evaluate.cpp:550-563).  ``--dump FILE.sph`` writes the solution
 field as an SPH scalar file (fileout_t, cz_utility.f90:17-47; pitch (p, p,
-p), step = the iterations; utils/sph.py).
+p), step = the iterations; utils/sph.py).  ``--profile`` writes
+``profiling.txt``, the PMlib-style report of perf/profile.py's
+``profile_solve`` over min(50, iterations) iterations of the solve's step
+(its sweep and the driver's overhead; on a mesh the halo exchange, the
+residual fold and the block sweep), plus ``solve_total``, the solve's
+wall; %SoL is taken against the card's entry in perf/pmlib.py's table.
+For pbicgstab, cg, mg, fmg and fd, which are no sweep, it profiles
+``sor2sma`` on the same problem, as the JAX package's CLI does.
 """
 
 from __future__ import annotations
@@ -26,12 +34,6 @@ import sys
 import time
 
 import torch
-
-# options of the JAX package's CLI that later slices of the port bring
-_LATER = {
-    "profile": "slice 8 (perf)",
-}
-
 
 def build_argparser():
     ap = argparse.ArgumentParser(
@@ -61,7 +63,10 @@ def build_argparser():
     )
     ap.add_argument("--dist", action="store_true",
                     help="distributed solve over an automatic block division")
-    ap.add_argument("--profile", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument(
+        "--profile", action="store_true",
+        help="write profiling.txt (PMlib-style timing/flops/roofline report)",
+    )
     ap.add_argument("--dump", default=None, metavar="FILE.sph",
                     help="write the solution field as an SPH scalar file")
     return ap
@@ -69,11 +74,6 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    for opt, where in _LATER.items():
-        if getattr(args, opt):
-            raise NotImplementedError(
-                f"--{opt} is not ported to PyTorch yet: {where} of ROADMAP.md"
-            )
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but CUDA is not available")
 
@@ -103,6 +103,7 @@ def main(argv=None):
     prob = Problem.poisson_cube((gx, gy, gz), dtype=dtype, device=args.device,
                                 maf=is_maf)
     run = functools.partial(solve, prob, args.solver)
+    cm = None
     if args.dist or gdv:
         nblocks = None if gdv is None else gdv[0] * gdv[1] * gdv[2]
         ndev = torch.cuda.device_count() if args.device == "cuda" else 1
@@ -139,6 +140,25 @@ def main(argv=None):
     print("=================================")
     cells = prob.grid.num_inner * res.iters
     print(f"wall = {dt:.3f} s   {cells / dt / 1e6:.1f} Mcell-updates/s")
+
+    if args.profile:
+        # measured per-phase sections (sweep / halo / allreduce / driver)
+        # with analytic flops+bytes — the PMlib report with real timings
+        from .perf.pmlib import CALC
+        from .perf.profile import profile_solve
+
+        pm = profile_solve(
+            prob,
+            args.solver
+            if kind not in ("pbicgstab", "cg", "mg", "fmg", "fd")
+            else "sor2sma",
+            omega=args.coef, iters=min(50, max(res.iters, 1)), cmesh=cm,
+            impl=args.impl,
+        )
+        pm.add("solve_total", dt, kind=CALC, calls=res.iters)
+        pm.sections["solve_total"].exclusive = False
+        pm.write("profiling.txt")
+        print("profiling.txt written")
 
     if args.dump:
         from .utils.sph import write_sph

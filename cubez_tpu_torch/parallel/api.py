@@ -25,14 +25,14 @@ their preconditioner.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ..core.problem import Problem
 from ..solvers.api import _initial_x
 from ..solvers.driver import EPS_DEFAULT, SolveResult, run_iterative
-from ..solvers.steps import DIAGONAL, EXTENSIONS, KRYLOV, parse_name
+from ..solvers.steps import DIAGONAL, EXTENSIONS, KRYLOV, labeled, parse_name
 from . import dist_fused, dist_pack
 from .dist import make_dist_step, make_gathered_step
 from .krylov import solve_krylov_dist
@@ -116,11 +116,49 @@ def solve_dist(
         result = solve_krylov_dist(problem, cmesh, solver, omega, itr_max, eps,
                                    precond, impl)
         return _finish(result, history_path)
+    route = dist_route(problem, cmesh, solver, omega, impl, sync)
+    result = run_iterative(route.step, route.x, route.b, g.res_normal, itr_max,
+                           eps, check_every=check_every, pre=route.pre,
+                           post=route.post)
+    return _finish(dataclasses.replace(result, x=route.out(result.x)),
+                   history_path)
+
+
+@dataclasses.dataclass
+class DistRoute:
+    """The step a distributed relaxation or line solve runs and the state it
+    runs on.  ``kind``: 'pack' (K7, dist_pack.py), 'fused' (K8/K9,
+    dist_fused.py), 'plain' (parallel/dist.py) or 'gathered' (the serial
+    step on the gathered field).  ``x``/``b``: the starting state and the
+    right-hand side in the step's layout (``b`` None where the step skips
+    a zero b); ``pre``/``post`` the driver's converters (the gathered
+    route's); ``out`` maps the final state to the global (K, I, J) field
+    on the device of the problem's x0.  The steps of the block routes carry
+    ``exchange`` (their ghost refresh alone, on their state) and
+    ``exchanges_per_call``."""
+    kind: str
+    step: Callable
+    x: list
+    b: Optional[list]
+    out: Callable
+    pre: Optional[Callable] = None
+    post: Optional[Callable] = None
+
+
+def dist_route(problem: Problem, cmesh: CubeMesh, solver: str, omega: float,
+               impl: str = "auto", sync: str = "auto") -> DistRoute:
+    """The route ``solve_dist`` takes for a relaxation or line solver (see
+    its docstring), which ``perf.profile.profile_solve`` and
+    ``perf.scaling.weak_scaling`` time too.  The step carries the solver's
+    name as its profiler label (``steps.labeled``)."""
+    kind, is_maf = parse_name(solver)
+    g = problem.grid
     if is_maf and problem.mc is None:
         raise ValueError("MAF solver requested but Problem has no MafCoeffs")
     plain = impl == "plain"
     mc_problem = problem if is_maf else dataclasses.replace(problem, mc=None)
     line = kind in dist_fused.LINE_KINDS
+    dev = problem.x0.device
     # the kernels' routes take what the JAX package fuses: float32 and the
     # standard mask (its fused steps synthesize the inner mask)
     kernels = g.dtype == torch.float32 and problem.msk_is_standard()
@@ -133,11 +171,11 @@ def solve_dist(
     if kind in DIAGONAL + EXTENSIONS:
         step, pre, post = make_gathered_step(mc_problem, cmesh, solver, omega,
                                              plain=plain)
-        result = run_iterative(step, cmesh.shard(_initial_x(step, mc_problem)),
-                               cmesh.shard(problem.rhs), g.res_normal, itr_max,
-                               eps, check_every=check_every, pre=pre, post=post)
-        x = cmesh.gather(result.x, device=problem.x0.device)
-        return _finish(dataclasses.replace(result, x=x), history_path)
+        step = labeled(solver, step)
+        return DistRoute("gathered", step,
+                         cmesh.shard(_initial_x(step, mc_problem)),
+                         cmesh.shard(problem.rhs),
+                         lambda xs: cmesh.gather(xs, device=dev), pre, post)
     if pack_ok:
         pstep = dist_pack.make_dist_packed_step(mc_problem, cmesh, omega,
                                                 plain=plain)
@@ -147,12 +185,11 @@ def solve_dist(
                 "zero inner RHS, even block extents >= the 2n ghost depth); "
                 "use sync='auto' to fall back to 'color'")
         if pstep is not None:
-            xs = dist_pack.to_packed_state(cmesh, problem.x0, pstep.hs)
-            result = run_iterative(pstep, xs, None, g.res_normal, itr_max, eps,
-                                   check_every=check_every)
-            x = dist_pack.from_packed_state(cmesh, result.x, g.shape_kij,
-                                            pstep.hs, device=problem.x0.device)
-            return _finish(dataclasses.replace(result, x=x), history_path)
+            return DistRoute(
+                "pack", labeled(solver, pstep),
+                dist_pack.to_packed_state(cmesh, problem.x0, pstep.hs), None,
+                lambda xs: dist_pack.from_packed_state(
+                    cmesh, xs, g.shape_kij, pstep.hs, device=dev))
 
     b_is_zero = problem.rhs_is_inner_zero()
     step = None
@@ -165,20 +202,27 @@ def solve_dist(
             step = dist_fused.make_dist_fused_overlap_step(
                 problem, cmesh, omega, b_is_zero=b_is_zero, plain=plain)
     if step is not None:
-        xs = dist_fused.to_block_state(cmesh, problem.x0)
-        bs = None if b_is_zero else dist_fused.to_block_state(cmesh, problem.rhs)
-        result = run_iterative(step, xs, bs, g.res_normal, itr_max, eps,
-                               check_every=check_every)
-        x = dist_fused.from_block_state(cmesh, result.x, g.shape_kij,
-                                        device=problem.x0.device)
-        return _finish(dataclasses.replace(result, x=x), history_path)
+        return DistRoute(
+            "fused", labeled(solver, step),
+            dist_fused.to_block_state(cmesh, problem.x0),
+            None if b_is_zero else dist_fused.to_block_state(cmesh, problem.rhs),
+            lambda xs: dist_fused.from_block_state(cmesh, xs, g.shape_kij,
+                                                   device=dev))
+    return plain_route(mc_problem, cmesh, solver, omega,
+                       overlap=sync == "overlap")
 
-    step = make_dist_step(mc_problem, cmesh, solver, omega,
-                          overlap=sync == "overlap")
-    result = run_iterative(step, cmesh.shard(problem.x0), cmesh.shard(problem.rhs),
-                           g.res_normal, itr_max, eps, check_every=check_every)
-    x = cmesh.gather(result.x, device=problem.x0.device)
-    return _finish(dataclasses.replace(result, x=x), history_path)
+
+def plain_route(problem: Problem, cmesh: CubeMesh, solver: str, omega: float,
+                overlap: bool = False) -> DistRoute:
+    """The 'plain' route: parallel/dist.py's step on owned blocks (plain
+    torch on the blocks' devices), where ``dist_route`` sends float64, the
+    MAF point sweeps off the packed path, jacobi with sync='overlap' and a
+    non-standard mask."""
+    step = make_dist_step(problem, cmesh, solver, omega, overlap=overlap)
+    dev = problem.x0.device
+    return DistRoute("plain", labeled(solver, step), cmesh.shard(problem.x0),
+                     cmesh.shard(problem.rhs),
+                     lambda xs: cmesh.gather(xs, device=dev))
 
 
 def _finish(result: SolveResult, history_path) -> SolveResult:

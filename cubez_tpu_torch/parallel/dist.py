@@ -91,9 +91,14 @@ def _sum2(dps):
     return psum_all([(d * d).sum(dtype=torch.float64) for d in dps])
 
 
-def _attach(step):
+def _attach(step, cmesh: CubeMesh, exchanges: int):
+    """Set a step's driver attributes (one iteration a call, its own
+    ``single``) and its halo exchange alone (``exchange``, called
+    ``exchanges_per_call`` times a call), which perf/profile.py times."""
     step.iters_per_call = 1
     step.single = step
+    step.exchange = lambda xs: exchange_halo(xs, cmesh)
+    step.exchanges_per_call = exchanges
     return step
 
 
@@ -131,7 +136,7 @@ def make_dist_step(problem: Problem, cmesh: CubeMesh, name: str, omega: float,
                 dps = sweep(xs, bs, mhs)
                 return [x + d for x, d in zip(xs, dps)], _sum2(dps)
 
-            return _attach(step)
+            return _attach(step, cmesh, 1)
 
         colours = _global_parity(cmesh, g.shape_kij, (0, 1, 2), 1, dtype)
         mhs_c = [[pad_zeros(m * cm[c]) for m, cm in zip(mbs, colours)]
@@ -145,7 +150,7 @@ def make_dist_step(problem: Problem, cmesh: CubeMesh, name: str, omega: float,
                 r2 = _sum2(dps) if r2 is None else r2 + _sum2(dps)
             return xs, r2
 
-        return _attach(step)
+        return _attach(step, cmesh, 2)
 
     if kind in ("pcr", "pcr_rb"):
         lk = g.nk // cmesh.div[0]
@@ -194,7 +199,7 @@ def _line_step(kind, cmesh, g, mbs, omega, line_solve, mcls=None):
             r2 = _sum2(dps) if r2 is None else r2 + _sum2(dps)
         return xs, r2
 
-    return _attach(step)
+    return _attach(step, cmesh, 2 if kind == "pcr_rb" else 1)
 
 
 def _local_mc(mc, cmesh: CubeMesh, gshape):
@@ -260,7 +265,7 @@ def _make_dist_maf_step(problem: Problem, cmesh: CubeMesh, kind: str,
             dps = deltas(xs, bs, mhs)
             return [x + d for x, d in zip(xs, dps)], _sum2(dps)
 
-        return _attach(step)
+        return _attach(step, cmesh, 1)
 
     colours = _global_parity(cmesh, g.shape_kij, (0, 1, 2), 1, dtype)
     mhs_c = [[pad_zeros(m * cm[c]) for m, cm in zip(mbs, colours)]
@@ -274,7 +279,7 @@ def _make_dist_maf_step(problem: Problem, cmesh: CubeMesh, kind: str,
             r2 = _sum2(dps) if r2 is None else r2 + _sum2(dps)
         return xs, r2
 
-    return _attach(step)
+    return _attach(step, cmesh, 2)
 
 
 def make_gathered_step(problem: Problem, cmesh: CubeMesh, name: str,

@@ -131,8 +131,17 @@ def make_dist_fused_step(problem: Problem, cmesh: CubeMesh, kind: str,
                 mesh.run(launchers, xs, bl)
             return xs, mesh.res.total()
 
+    return _attach(step, exchange, len(colours))
+
+
+def _attach(step, exchange, exchanges: int):
+    """Set a step's driver attributes (one iteration a call, its own
+    ``single``) and its ghost refresh alone (``exchange``, called
+    ``exchanges_per_call`` times a call), which perf/profile.py times."""
     step.iters_per_call = 1
     step.single = step
+    step.exchange = exchange
+    step.exchanges_per_call = exchanges
     return step
 
 
@@ -218,9 +227,7 @@ def _make_line_step(problem: Problem, cmesh: CubeMesh, kind: str, omega: float,
             return xs, mesh.res.total()
 
     step.solver = form
-    step.iters_per_call = 1
-    step.single = step
-    return step
+    return _attach(step, exchange, len(colours))
 
 
 def make_dist_fused_overlap_step(problem: Problem, cmesh: CubeMesh,
@@ -264,6 +271,4 @@ def make_dist_fused_overlap_step(problem: Problem, cmesh: CubeMesh,
             mesh.run(shell, xs, bl)
         return xs, mesh.res.total()
 
-    step.iters_per_call = 1
-    step.single = step
-    return step
+    return _attach(step, exchange, 2)

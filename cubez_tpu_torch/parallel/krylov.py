@@ -93,19 +93,22 @@ def make_dist_precon(problem: Problem, cmesh: CubeMesh, precond, omega: float,
     pprob = dataclasses.replace(problem,
                                 mc=steps_mod.maf_coeffs(problem, precond))
     if kind in steps_mod.DIAGONAL + steps_mod.EXTENSIONS:
-        return sweeps_precon(
-            *make_gathered_step(pprob, cmesh, precond, omega,
-                                plain=impl == "plain",
-                                b_arg_is_problem_rhs=False), sweeps=sweeps)
+        step, pre, post = make_gathered_step(pprob, cmesh, precond, omega,
+                                             plain=impl == "plain",
+                                             b_arg_is_problem_rhs=False)
+        return sweeps_precon(steps_mod.labeled(precond, step), pre, post,
+                             sweeps=sweeps)
     step = None
     if (problem.grid.dtype == torch.float32 and problem.msk_is_standard()
             and (kind in dist_fused.LINE_KINDS or pprob.mc is None)):
         step = dist_fused.make_dist_fused_step(
             pprob, cmesh, kind, omega, b_is_zero=False, plain=impl == "plain")
     if step is None:
-        return sweeps_precon(make_dist_step(pprob, cmesh, precond, omega))
+        return sweeps_precon(steps_mod.labeled(
+            precond, make_dist_step(pprob, cmesh, precond, omega)))
     return sweeps_precon(
-        step, lambda vs: [dist_sweeps.pad_block(v) for v in vs],
+        steps_mod.labeled(precond, step),
+        lambda vs: [dist_sweeps.pad_block(v) for v in vs],
         # copies of the owned cells: the step's blocks are its own
         lambda xs: [dist_sweeps.unpad_block(x).contiguous() for x in xs])
 

@@ -24,7 +24,7 @@ from . import steps as steps_mod
 from .bicgstab import make_bicgstab
 from .cg import make_cg
 from .driver import EPS_DEFAULT, SolveResult, run_iterative
-from .fused_cache import get_fused_step
+from .fused_cache import relaxation_route
 
 SOLVERS = steps_mod.ALL_SOLVERS
 IMPLS = ("auto", "plain")
@@ -100,7 +100,7 @@ def solve(
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     kind, _ = steps_mod.parse_name(solver)
-    mc = steps_mod.maf_coeffs(problem, solver)
+    steps_mod.maf_coeffs(problem, solver)  # a _maf name needs MafCoeffs
     g = problem.grid
     if kind in steps_mod.KRYLOV:
         if kind == "cg":
@@ -108,23 +108,11 @@ def solve(
         else:
             run = make_bicgstab(problem, solver, omega, precond, impl)
         result = run(problem.x0, problem.rhs, itr_max, eps, g.res_normal)
-    elif kind in steps_mod.EXTENSIONS:
-        step = steps_mod.make_step(problem, solver, omega, plain=impl == "plain")
-        result = run_iterative(step, _initial_x(step, problem), problem.rhs,
-                               g.res_normal, itr_max, eps,
-                               check_every=check_every)
     else:
-        step = pre = post = None
-        if problem.msk_is_standard():
-            step = get_fused_step(kind, g, omega, mc=mc, plain=impl == "plain",
-                                  b_is_zero=problem.rhs_is_inner_zero())
-        if step is not None:
-            pre, post = step.pad, step.unpad
-        else:
-            step = steps_mod.make_step(problem, solver, omega)
+        step, pre, post = relaxation_route(problem, solver, omega, impl)
         result = run_iterative(
-            step, problem.x0, problem.rhs, g.res_normal, itr_max, eps,
-            check_every=check_every, pre=pre, post=post,
+            step, _initial_x(step, problem), problem.rhs, g.res_normal,
+            itr_max, eps, check_every=check_every, pre=pre, post=post,
         )
     if history_path:
         result.write_history(history_path)

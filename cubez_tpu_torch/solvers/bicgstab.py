@@ -45,7 +45,7 @@ from ..ops import blas
 from ..ops import maf as maf_ops
 from . import steps as steps_mod
 from .driver import SolveResult, fixed_sweeps
-from .fused_cache import get_fused_step
+from .fused_cache import relaxation_route
 
 FLT_MIN = float(np.finfo(np.float32).tiny)  # rho breakdown (cz_Poisson.cpp:379)
 PRECOND_SWEEPS = 8
@@ -181,20 +181,9 @@ def make_precon(problem: Problem, precond, omega: float, impl: str = "auto"):
     if is_identity(precond):
         return lambda v: v
     precond, omega, sweeps = precon_plan(precond, omega)
-    kind, _ = steps_mod.parse_name(precond)
-    plain = impl == "plain"
-    if kind in steps_mod.EXTENSIONS:
-        return sweeps_precon(
-            steps_mod.make_step(problem, precond, omega, plain=plain,
-                                b_arg_is_problem_rhs=False), sweeps=sweeps)
-    mc = steps_mod.maf_coeffs(problem, precond)
-    step = None
-    if problem.msk_is_standard():
-        step = get_fused_step(kind, problem.grid, omega, mc=mc, plain=plain,
-                              b_is_zero=False)
-    if step is None:
-        return sweeps_precon(steps_mod.make_step(problem, precond, omega))
-    return sweeps_precon(step, step.pad, step.unpad)
+    return sweeps_precon(*relaxation_route(problem, precond, omega, impl,
+                                           b_arg_is_problem_rhs=False),
+                         sweeps=sweeps)
 
 
 def _guard(den, one, absolute=True):

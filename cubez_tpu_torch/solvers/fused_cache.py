@@ -11,6 +11,7 @@ from __future__ import annotations
 from ..cuda_kernels import lines, rblines, rbpack, sweeps
 from ..ops.pcr_gs import make_pcr_gs_diag_step
 from ..ops.psor_scan import make_psor_diag_step
+from . import steps as steps_mod
 
 
 def get_fused_step(kind: str, grid, omega: float, mc=None,
@@ -67,3 +68,35 @@ def get_fused_step(kind: str, grid, omega: float, mc=None,
         step = sweeps.make_fused_sweep(kind, shape, dtype,
                                        b_is_zero=b_is_zero, **kw)
     return step
+
+
+def relaxation_route(problem, solver: str, omega: float, impl: str = "auto",
+                     b_arg_is_problem_rhs: bool = True):
+    """``(step, pre, post)`` of the serial step ``solve`` runs for a
+    relaxation, line or extension solver name, and the preconditioners
+    for theirs: with the standard mask the kernel step of
+    ``get_fused_step`` with its ``pad``/``unpad``; otherwise, and where no
+    kernel step exists (a line solver with K - 2 < 2), the plain unpacked
+    sweep of ``steps.make_step`` (pre and post None); for the extensions
+    (mg, fmg, fd) ``steps.make_step``'s step.  ``impl`` 'plain' runs the
+    twins.  ``b_arg_is_problem_rhs`` False (a preconditioner, driven with
+    Krylov vectors as b) keeps the steps from skipping a zero b.  The step
+    carries the solver's name as its profiler label (``steps.labeled``).
+    ``perf.profile.profile_solve`` times the step this returns."""
+    kind, _ = steps_mod.parse_name(solver)
+    plain = impl == "plain"
+    pre = post = step = None
+    if kind in steps_mod.EXTENSIONS:
+        step = steps_mod.make_step(problem, solver, omega, plain=plain,
+                                   b_arg_is_problem_rhs=b_arg_is_problem_rhs)
+    else:
+        if problem.msk_is_standard():
+            step = get_fused_step(
+                kind, problem.grid, omega,
+                mc=steps_mod.maf_coeffs(problem, solver), plain=plain,
+                b_is_zero=b_arg_is_problem_rhs and problem.rhs_is_inner_zero())
+        if step is not None:
+            pre, post = step.pad, step.unpad
+        else:
+            step = steps_mod.make_step(problem, solver, omega)
+    return steps_mod.labeled(solver, step), pre, post

@@ -15,6 +15,8 @@ forms, as solvers and as preconditioners: every name the JAX package runs.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.problem import Problem
@@ -73,6 +75,36 @@ KRYLOV = ("pbicgstab", "cg")
 DIAGONAL = ("psor", "pcr_gs")
 # the extensions: steps of their own (steps.make_step), standard mask only
 EXTENSIONS = ("mg", "fmg", "fd")
+
+
+def labeled(name: str, step):
+    """``step`` under a profiler label ``name``, the counterpart of the JAX
+    package's ``jax.named_scope`` (its steps._named; the reference's NVTX
+    PUSH_RANGE/POP_RANGE, cz.h:46-74).  While a profiler is on, each call
+    runs inside ``torch.profiler.record_function(name)``: an event of that
+    name in a torch.profiler trace, and under
+    ``torch.autograd.profiler.emit_nvtx()`` an NVTX range for nsys.  With
+    no profiler on, a call costs one flag check and never enters the label
+    (``labeled.entered`` counts the calls that did).  The step's attributes
+    (``iters_per_call``, ``pad``, ``unpad``, ``check_every_default``,
+    ``fmg_init`` ...) carry through, as functools.wraps does in the JAX
+    package; ``single`` is labeled too."""
+
+    @functools.wraps(step)
+    def run(x, b):
+        if not torch.autograd._profiler_enabled():
+            return step(x, b)
+        labeled.entered += 1
+        with torch.profiler.record_function(name):
+            return step(x, b)
+
+    single = getattr(step, "single", None)
+    if single is not None:
+        run.single = run if single is step else labeled(name, single)
+    return run
+
+
+labeled.entered = 0
 
 
 def require_standard_mask(problem: Problem, name: str):

@@ -51,19 +51,60 @@ def test_cli_cuda_requested_without_cuda_raises(tmp_path, monkeypatch):
     assert not (tmp_path / "sor2sma.txt").exists()
 
 
+def _profile_rows(path):
+    """(label, type, calls) of each section row of a profiling.txt, and
+    the row's %SoL field (blank where the table knows no figure)."""
+    lines = path.read_text().splitlines()
+    assert lines[0].split() == ["Label", "type", "calls", "time[s]", "GFLOPS",
+                                "GB/s", "%SoL"]
+    dashes = [i for i, ln in enumerate(lines) if set(ln) == {"-"}]
+    assert len(dashes) == 2 and lines[dashes[1] + 1].startswith("total (exclusive)")
+    rows = []
+    for ln in lines[dashes[0] + 1:dashes[1]]:
+        f = ln.split()
+        assert float(f[3]) >= 0
+        rows.append(((f[0], f[1], int(f[2])), ln[72:].strip()))
+    return rows
+
+
+def _both_profiles(argv, tmp_path, monkeypatch, capsys):
+    """Run ``argv --profile`` through the port's CLI (--device cpu) and the
+    JAX package's (--impl jnp); the rows of each profiling.txt."""
+    from cubez_tpu.cli import main as j_main
+
+    rows = {}
+    for name, run in (
+            ("torch", lambda: main(argv + ["--device", "cpu", "--profile"])),
+            ("jax", lambda: j_main(argv + ["--impl", "jnp", "--profile"]))):
+        d = tmp_path / name
+        d.mkdir()
+        monkeypatch.chdir(d)
+        assert run() in (0, None)
+        assert "profiling.txt written" in capsys.readouterr().out
+        rows[name] = _profile_rows(d / "profiling.txt")
+    return rows["torch"], rows["jax"]
+
+
 @pytest.mark.parametrize("extra,where", [
     (["--profile"], "slice 8"), (["--dump", "f.sph"], "slice 7"),
 ])
 def test_cli_later_slices_raise(extra, where, tmp_path, monkeypatch, capsys):
-    """--profile raises naming slice 8.  --dump, which raised naming slice
-    7 until it was ported, writes the field as SPH: the bytes of the JAX
+    """--profile and --dump, which raised naming their slices until they
+    were ported, run.  --profile (``8 8 8 sor2sma 10 1.5``) writes
+    profiling.txt with the JAX package's CLI's labels, kinds and call
+    counts for the same argv (times are not compared), %SoL against the
+    host's 50 GB/s.  --dump writes the field as SPH: the bytes of the JAX
     package's writer for the same field, pitch and step."""
     monkeypatch.chdir(tmp_path)
-    argv = ["8", "8", "8", "pcr_rb", "10", "1.5", "--device", "cpu"] + extra
     if where == "slice 8":
-        with pytest.raises(NotImplementedError, match=where):
-            main(argv)
+        t, j = _both_profiles(["8", "8", "8", "sor2sma", "10", "1.5"],
+                              tmp_path, monkeypatch, capsys)
+        assert [r for r, _ in t] == [r for r, _ in j] == [
+            ("sor2sma_sweep", "CALC", 10), ("driver_overhead", "CALC", 10),
+            ("solve_total", "CALC", 10)]
+        assert t[0][1] and not t[1][1] and not t[2][1]  # %SoL: bytes only
         return
+    argv = ["8", "8", "8", "pcr_rb", "10", "1.5", "--device", "cpu"] + extra
     assert main(argv) == 0
     assert "f.sph written" in capsys.readouterr().out
     from cubez_tpu.utils.native import write_sph as j_write_sph
@@ -75,6 +116,32 @@ def test_cli_later_slices_raise(extra, where, tmp_path, monkeypatch, capsys):
     assert (tmp_path / "f.sph").read_bytes() == (tmp_path / "j.sph").read_bytes()
     assert field.shape == (8, 8, 8) and 0 < step <= 10
     np.testing.assert_allclose(pitch, (p, p, p), rtol=1e-7)
+
+
+@pytest.mark.parametrize("solver,omega,route_exchanges", [
+    ("sor2sma", "1.5", 5),   # the pack ring: once a call of 2 iterations
+    ("jacobi", "0.8", 10),   # K8's twin: before each sweep, as JAX's
+])
+def test_cli_profile_over_a_division(solver, omega, route_exchanges, tmp_path,
+                                     monkeypatch, capsys):
+    """--profile over ``2 2 2`` at 8^3: the JAX package's sections and kinds
+    (halo_exchange and residual_allreduce COMM, the block sweep CALC, the
+    solve's total), the block sweep's and the total's calls; the exchanges
+    and folds are the port's route's (K7's ring refreshes once a call of n
+    iterations; K8 exchanges before each sweep as JAX's jnp step does), the
+    COMM rows carrying bytes."""
+    t, j = _both_profiles(["8", "8", "8", solver, "10", omega, "2", "2", "2"],
+                          tmp_path, monkeypatch, capsys)
+    labels = ["halo_exchange", "residual_allreduce", f"{solver}_block_sweep",
+              "solve_total"]
+    assert [r[0] for r, _ in t] == [r[0] for r, _ in j] == labels
+    assert [r[1] for r, _ in t] == [r[1] for r, _ in j] == ["COMM", "COMM",
+                                                            "CALC", "CALC"]
+    assert [r[2] for r, _ in t][2:] == [r[2] for r, _ in j][2:] == [10, 10]
+    assert t[0][0][2] == route_exchanges
+    assert t[1][0][2] == (5 if solver == "sor2sma" else 10)
+    # %SoL of the rows with bytes, against the host's 50 GB/s
+    assert all(sol for _, sol in t[:3]) and t[3][1] == ""
 
 
 @pytest.mark.parametrize("name", ["mg", "fmg_maf", "fd"])

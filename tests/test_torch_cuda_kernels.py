@@ -1562,3 +1562,52 @@ def test_mg_fine_level_runs_k4_in_both_dtypes(dev, dtype):
         assert torch.equal(rp.x, r.x)
     else:
         torch.testing.assert_close(rp.x, r.x, rtol=0, atol=1e-13)
+
+
+def test_profile_solve_on_the_card(dev):
+    """The perf layer on the card: profile_solve's sections timed with CUDA
+    events, %SoL against the card's table entry, and over eight blocks on
+    the card the pack route's COMM rows."""
+    from cubez_tpu_torch.perf import pmlib
+    from cubez_tpu_torch.perf.profile import profile_solve
+
+    p = czt.Problem.poisson_cube(64, device=dev)
+    pm = profile_solve(p, "sor2sma", OMEGA, iters=20)
+    assert pm.order == ["sor2sma_sweep", "driver_overhead"]
+    assert pm.sections["sor2sma_sweep"].seconds > 0
+    assert pm.device == dev and pm.hbm_gbps == pmlib.device_hbm_gbps(dev)
+    cm = czt.make_mesh(p.grid.shape_kij, devices=[dev] * 8, div=(2, 2, 2))
+    pm = profile_solve(p, "sor2sma", OMEGA, iters=20, cmesh=cm)
+    assert pm.order == ["halo_exchange", "residual_allreduce",
+                        "sor2sma_block_sweep"]
+    assert all(pm.sections[s].seconds > 0 and pm.sections[s].calls > 0
+               for s in pm.order[:2])
+
+
+def test_solver_label_on_the_card(dev):
+    """Under torch.profiler a solve's K1/K3 launches run inside its
+    ``sor2sma`` label; with no profiler on the label is never entered."""
+    from cubez_tpu_torch.solvers import steps
+
+    p = czt.Problem.poisson_cube(32, device=dev)
+    before = steps.labeled.entered
+    r = czt.solve(p, "sor2sma", omega=OMEGA, itr_max=10000)
+    assert r.iters == 199 and steps.labeled.entered == before
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        czt.solve(p, "sor2sma", omega=OMEGA, itr_max=10000)
+        torch.cuda.synchronize()
+    evs = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = [(e.time_range.start, e.time_range.end) for e in evs
+              if e.name == "sor2sma" and e.device_type == cpu]
+    launches = {e.id: e for e in evs if e.device_type == cpu
+                and e.name.startswith("cu") and "Launch" in e.name}
+    kernels = [e for e in evs if e.device_type != cpu
+               and "sweeps_kernel" in e.name]
+    assert ranges and kernels and steps.labeled.entered > before
+    for k in kernels:
+        ln = launches[k.id]
+        assert any(a <= ln.time_range.start and ln.time_range.end <= b
+                   for a, b in ranges)

@@ -238,6 +238,8 @@ def test_import_pulls_in_no_jax():
         "[importlib.import_module(m) for m in mods]; "
         "assert 'cubez_tpu_torch.parallel.dist_pack' in mods, mods; "
         "assert 'cubez_tpu_torch.cuda_kernels.dist_sweeps' in mods, mods; "
+        "assert {'cubez_tpu_torch.perf.' + m for m in ('pmlib', 'profile', "
+        "'roofline', 'memory', 'scaling')} <= set(mods), mods; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'cubez_tpu.')) or m == 'cubez_tpu']; "
         "assert not bad, bad; print(len(mods))"
