@@ -172,10 +172,12 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     beside the bound of an iteration;
 20. the exact serial orders (slice 6): one sweep of P1 (psor, csrc/psor.cu)
     and P2 (pcr, csrc/pcr_gs.cu) on the diagonal layout against its plain
-    twin, bit for bit, at 128^3 float32 (timed: ms a sweep in one launch)
-    and 64^3 float64, constant and MAF; then, each with the counts zeroed
-    just before and read just after (one launch a sweep, no other kernel
-    of the slice), psor, psor_maf, pcr and pcr_maf at 128^3 float32
+    twin, bit for bit, and the steps' launch of n lagged sweeps against n
+    twin calls, at 128^3 float32 (timed: ms a sweep in one-sweep launches
+    and in launches of n) and 64^3 float64, constant and MAF; then, each
+    with the counts zeroed just before and read just after (launches of n
+    sweeps and the stop's one-sweep launches, no other kernel of the
+    slice), psor, psor_maf, pcr and pcr_maf at 128^3 float32
     (DIAG_MAF_N for the MAF forms) against the f32 oracle (3249, 3249,
     1357, 1356 +-2%; at 128^3 the curves rtol 1e-3 but for the last entry
     against the oracle with float64 sums of dp^2, tests/
@@ -183,9 +185,10 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     float64 (+-1%, rtol 1e-6); pcr_eda and pcr_esa at 32^3 (pcr's count and
     field); solve_dist of psor and pcr over (2, 2, 2) at 64^3 (the serial
     count, history and field bit for bit); pbicgstab with psor at 64^3
-    (16 P1 launches an iteration); the CLI ``124 124 124 pcr 10000 1.5``
-    (the in-process count); and the wall, device time, device launches and
-    busy share a sweep of 200-sweep psor and pcr solve windows at 128^3;
+    (2 P1 launches of 8 sweeps an iteration); the CLI ``124 124 124 pcr
+    10000 1.5`` (the in-process count); and the wall, device time, device
+    launches and busy share a sweep of psor and pcr solve windows of whole
+    calls (at least 200 sweeps) at 128^3;
 21. the extensions (slice 7), each solve with the counts zeroed just before
     and read just after: mg, mg_maf, fmg, fmg_maf, fd and fd_maf at 128^3
     float32 (omega 1.0) at the JAX package's counts (JAX_EXT_128, tools/
@@ -1179,6 +1182,24 @@ def main():
         e1.synchronize()
         return e0.elapsed_time(e1) / reps
 
+    def device_time(prof, kernel=None):
+        """(device us, device events) of a torch.profiler run: the card's own
+        events (kernels, copies; those whose name holds ``kernel``), not
+        the solver labels the profiler mirrors on the card's timeline
+        (user annotations, whose ranges span those events)."""
+        us = n_ev = 0
+        for ev in prof.key_averages():
+            if (ev.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(ev, "is_user_annotation", False)
+                    or (kernel is not None and kernel not in ev.key)):
+                continue
+            t = getattr(ev, "self_device_time_total", None)
+            t = ev.self_cuda_time_total if t is None else t
+            if t > 0:
+                us += t
+                n_ev += ev.count
+        return us, n_ev
+
     dgen = torch.Generator(device=dev).manual_seed(SEED)
 
     def per_iter_ms(step, shape, short, long, reps=3):
@@ -1826,15 +1847,7 @@ def main():
             fixed_sweeps(step, x, None, iters)
             sync()
             wall = time.perf_counter() - t0
-        us = n_ev = 0
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            t = getattr(ev, "self_device_time_total", None)
-            t = ev.self_cuda_time_total if t is None else t
-            if t > 0:
-                us += t
-                n_ev += ev.count
+        us, n_ev = device_time(prof)
         check(us > 0, "the profiler recorded no device time")
         return us / iters, n_ev / iters, us / 1e6 / wall
 
@@ -2612,15 +2625,7 @@ def main():
             r = run(q)
             sync()
             wall = time.perf_counter() - t0
-        us = n_ev = 0
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            t = getattr(ev, "self_device_time_total", None)
-            t = ev.self_cuda_time_total if t is None else t
-            if t > 0:
-                us += t
-                n_ev += ev.count
+        us, n_ev = device_time(prof)
         check(us > 0, "the profiler recorded no device time in a Krylov solve")
         bound_ms = 60 * p.x0.element_size() * n**3 / HBM_BYTES_S * 1e3
         print(f"timing pbicgstab sor2sma {n}^3 {n_ref}: wall "
@@ -2636,11 +2641,24 @@ def main():
     # ---- 20. the exact serial orders (slice 6): P1 and P2 -------------------
     stamp(20)
     t20 = time.perf_counter()
-    # one sweep of each kernel against its plain twin on the same inputs
-    # (skewed seeded fields), bit for bit: 128^3 float32 (the path's shape,
-    # timed) and 64^3 float64, constant and MAF; the residuals, float64
-    # sums in another order on the two sides, to rtol 1e-10
-    diag_timing = {}
+    # each kernel against its plain twin on the same inputs (skewed seeded
+    # fields), bit for bit: 128^3 float32 (the path's shape, timed) and 64^3
+    # float64, constant and MAF; one sweep in a one-sweep launch, then the
+    # step's launch of n lagged sweeps against n twin calls; the
+    # residuals, float64 sums in another order on the two sides, to rtol
+    # 1e-10 (one sweep) and 1e-12 (each of the n)
+    diag_extra = {}  # P1/P2 row keys of the kernels line
+    # the least work of a sweep at 128^3 f32, as ``ms`` is a sweep's share
+    # of a launch of n: the launch reads S and B and writes S once, 3
+    # fields, whatever its n sweeps read again inside it, so a sweep's
+    # share is 3 / n fields; operations an inner point a sweep: psor 12
+    # (five adds, the subtraction of b, the division, the update's three,
+    # dp^2 and its sum), MAF 21; pcr K10's count of a line row (4 + 5 (pn
+    # - 1) + 8 with tables, 15 + 16 (pn - 1) + 11 under MAF)
+    pn128 = num_stage(126)
+    diag_ops = {"psor_diag": 12, "psor_diag_maf": 21,
+                "pcr_gs_diag": 4 + 5 * (pn128 - 1) + 8,
+                "pcr_gs_diag_maf": 15 + 16 * (pn128 - 1) + 11}
     for n, dtype in ((128, f32), (64, f64)):
         skew, _, _ = psor_scan.make_skew((n,) * 3)
         S, B = (skew(torch.rand((n,) * 3, device=dev, generator=dgen,
@@ -2650,25 +2668,29 @@ def main():
                   if maf else None)
             for kname, omega in (("psor_diag", 1.1), ("pcr_gs_diag", OMEGA)):
                 if kname == "psor_diag":
-                    launch = kp1.PsorSweep(omega, mc)
+                    sweeps = kp1.sweeps_for((n,) * 3, dev)
+                    launch1 = kp1.PsorSweep(omega, mc)
+                    launchn = kp1.PsorSweep(omega, mc, sweeps)
 
-                    def kfn(S_):
+                    def kfn(S_, launch):
                         return kp1.psor_diag(S_, B, omega, mc, launcher=launch)
 
                     def pfn(S_):
                         return psor_scan.psor_diag_plain(S_, B, omega, mc)
                 else:
-                    launch = kp2.PcrGsSweep(omega, mc)
-                    tabs = launch.tables(S)
+                    sweeps = kp2.sweeps_for((n,) * 3, dtype, maf, dev)
+                    launch1 = kp2.PcrGsSweep(omega, mc)
+                    launchn = kp2.PcrGsSweep(omega, mc, sweeps=sweeps)
+                    tabs = launch1.tables(S)
 
-                    def kfn(S_):
+                    def kfn(S_, launch):
                         return kp2.pcr_gs_diag(S_, B, omega, mc, launcher=launch)
 
                     def pfn(S_):
                         return gs_ops.pcr_gs_diag_plain(S_, B, omega, tabs)
                 var = kname + ("_maf" if maf else "")
                 label = f"{var} {n}^3 {str(dtype)[6:]}"
-                Sk, rk = kfn(S.clone())
+                Sk, rk = kfn(S.clone(), launch1)
                 Sp, rp = pfn(S)
                 sync()
                 e = float((Sk - Sp).abs().max())
@@ -2677,35 +2699,53 @@ def main():
                 r_rel = abs(float(rk) / float(rp) - 1)  # rk: the launcher's buffer
                 check(r_rel <= 1e-10, f"{label}: residual {float(rk)} against "
                       f"the twin's {float(rp)}")
-                # ms a sweep: back-to-back sweeps of one field (in place)
+                # the launch of n sweeps against n twin calls
+                Sn, rn = kfn(S.clone(), launchn)
+                rn = rn.tolist()
+                Sp, rps = S, []
+                for _ in range(sweeps):
+                    Sp, r_ = pfn(Sp)
+                    rps.append(float(r_))
+                sync()
+                en = float((Sn - Sp).abs().max())
+                check(torch.equal(Sn, Sp), f"{label}: {sweeps} sweeps in one "
+                      f"launch differ from {sweeps} twin calls by {en}")
+                rn_rel = max(abs(x / y - 1) for x, y in zip(rn, rps))
+                check(rn_rel <= 1e-12, f"{label}: the {sweeps}-sweep launch's "
+                      f"residuals {rn} against the twin's {rps}")
+                # ms a sweep: back-to-back launches on one field (in place)
                 Sw = Sk.clone()
-                kfn(Sw)
-                k_ms = min(events_ms(lambda: kfn(Sw), 10),
-                           events_ms(lambda: kfn(Sw), 10))
+                kfn(Sw, launch1)
+                k1_ms = min(events_ms(lambda: kfn(Sw, launch1), 10),
+                            events_ms(lambda: kfn(Sw, launch1), 10))
+                kfn(Sw, launchn)
+                kn_ms = min(events_ms(lambda: kfn(Sw, launchn), 5),
+                            events_ms(lambda: kfn(Sw, launchn), 5)) / sweeps
                 p_ms = events_ms(lambda: pfn(S), 1)
-                diag_timing[(var, n)] = (k_ms, p_ms)
+                # the chain: dependent steps of a launch (the lagged
+                # wavefront's, I + J - 5 (+ chunks - 1 for P1) + 2 (n - 1)),
+                # a sweep's share of them and the time of a step
+                steps = (launchn.plan.steps((n,) * 3) if kname == "psor_diag"
+                         else 2 * n - 5 + 2 * (sweeps - 1))
                 if n == 128:
-                    err[var] = e
-                    per_call[var] = (k_ms, p_ms)
-                plan = (f", {launch.plan.form} form, {launch.grid} CTAs"
-                        if kname == "pcr_gs_diag" else f", {launch.grid} CTA(s)")
+                    err[var] = max(e, en)
+                    per_call[var] = (kn_ms, p_ms)
+                    work[var] = (3 * fb / sweeps, diag_ops[var] * inner)
+                    diag_extra[var] = {
+                        "sweeps_per_launch": sweeps, "ms_one_sweep_launch": k1_ms,
+                        "steps_per_sweep": steps / sweeps,
+                        "us_per_step": kn_ms * 1e3 * sweeps / steps}
+                plan = (f"{launchn.plan.form} form, {launchn.grid} CTAs"
+                        if kname == "pcr_gs_diag" else
+                        f"{launchn.plan.rows} rows a chunk, {launchn.grid} CTAs")
                 print(f"{label}: one sweep bitwise its twin, residual rtol "
-                      f"{r_rel:.1e}; {k_ms:.4f} ms a "
-                      f"sweep in one launch{plan} (twin {p_ms:.4f} ms) {tag}",
-                      flush=True)
-                del Sk, Sp, Sw
+                      f"{r_rel:.1e}; {sweeps} sweeps in one launch bitwise "
+                      f"{sweeps} twin calls, residuals rtol {rn_rel:.1e}; "
+                      f"{kn_ms:.4f} ms a sweep in launches of {sweeps} "
+                      f"({plan}), {k1_ms:.4f} in "
+                      f"one-sweep launches (twin {p_ms:.4f} ms) {tag}", flush=True)
+                del Sk, Sp, Sw, Sn
         del S, B
-    pn128 = num_stage(126)
-    # 3 fields a sweep (S and B read, S written once); operations an inner
-    # point: psor 12 (five adds, the subtraction of b, the division, the
-    # update's three, dp^2 and its sum), MAF 21; pcr K10's count of a line
-    # row (4 + 5 (pn - 1) + 8 with tables, 15 + 16 (pn - 1) + 11 under MAF)
-    work.update({
-        "psor_diag": (3 * fb, 12 * inner),
-        "psor_diag_maf": (3 * fb, 21 * inner),
-        "pcr_gs_diag": (3 * fb, (4 + 5 * (pn128 - 1) + 8) * inner),
-        "pcr_gs_diag_maf": (3 * fb, (15 + 16 * (pn128 - 1) + 11) * inner),
-    })
 
     def diag_solve(p, name, omega, **kw):
         zero_counts()
@@ -2718,12 +2758,22 @@ def main():
         return (("psor_diag" if name.startswith("psor") else "pcr_gs_diag")
                 + ("_maf" if name.endswith("_maf") else ""))
 
+    def diag_launches(p, name, omega, iters):
+        """(launches of a solve of ``iters`` sweeps, sweeps a call): whole
+        calls of the step's n lagged sweeps to the chunk that stops, then
+        the stopping chunk replayed on the one-sweep launch."""
+        kind = "psor" if name.startswith("psor") else "pcr_gs"
+        n = get_fused_step(kind, p.grid, omega, mc=p.mc).iters_per_call
+        calls = -(-iters // n)
+        return calls + (iters - n * (calls - 1) if iters % n else 0), n
+
     # the oracle's runs: 128^3 float32 (count +-2%; curve rtol 1e-3 but for
     # the last entry, against the oracle with float64 sums of dp^2, HIST64:
     # the reference sums these sweeps' dp^2 in one float, the kernels in
     # float64) and 64^3 float64 (+-1%, rtol 1e-6); each solve with the
-    # counts zeroed just before and read just after: one launch a sweep and
-    # no other kernel of this slice
+    # counts zeroed just before and read just after: launches of n sweeps
+    # and the stop's one-sweep launches (diag_launches), no other kernel of
+    # this slice
     diag_solves = {}
     for name, omega, n, dtype in (
             ("psor", 1.1, 128, f32), ("psor_maf", 1.1, DIAG_MAF_N, f32),
@@ -2751,15 +2801,17 @@ def main():
         check(worst <= (1e-3 if is32 else 1e-6), f"{label}: history rtol {worst}")
         others = [v for v in ("psor_diag", "psor_diag_maf", "pcr_gs_diag",
                               "pcr_gs_diag_maf") if v != var]
-        check(c[var] == r.iters and not any(c[v] for v in others),
-              f"{label}: {c[var]} {var} launches for {r.iters} sweeps")
+        want, n_call = diag_launches(p, name, omega, r.iters)
+        check(c[var] == want and not any(c[v] for v in others),
+              f"{label}: {c[var]} {var} launches for {r.iters} sweeps, not "
+              f"{want} (calls of {n_call} and the stop's one-sweep launches)")
         if is32:
             path_launches[var] = c[var]
         diag_solves[(name, n)] = (r.iters, wall)
         print(f"{label}: {r.iters} iterations (oracle {len(ref)}), history rtol "
               f"{worst:.2e}, res {r.res:e}, Error max {err_max(p, r.x):e}, wall "
               f"{wall:.3f} s ({wall / r.iters * 1e3:.4f} ms a sweep), {var} "
-              f"launches {c[var]} {tag}", flush=True)
+              f"launches {c[var]} ({n_call} sweeps a call) {tag}", flush=True)
         del p, r
 
     # pcr_eda and pcr_esa: pcr's step (three layouts of one serial line
@@ -2769,7 +2821,8 @@ def main():
     for name in ("pcr_eda", "pcr_esa"):
         r, c, _ = diag_solve(p32, name, OMEGA)
         check(r.iters == r_pcr.iters and abs(r.iters - 142) <= 2
-              and torch.equal(r.x, r_pcr.x) and c["pcr_gs_diag"] == r.iters,
+              and torch.equal(r.x, r_pcr.x)
+              and c["pcr_gs_diag"] == diag_launches(p32, name, OMEGA, r.iters)[0],
               f"{name} 32^3: {r.iters} iterations ({c['pcr_gs_diag']} P2 "
               f"launches), pcr {r_pcr.iters}")
         print(f"{name} 32^3 f32: {r.iters} iterations, pcr's field bit for "
@@ -2789,7 +2842,8 @@ def main():
         c = read_counts()
         var = diag_var(name)
         check(rd.iters == rs.iters and torch.equal(rd.x, rs.x)
-              and torch.equal(rd.history, rs.history) and c[var] == rd.iters,
+              and torch.equal(rd.history, rs.history)
+              and c[var] == diag_launches(p64, name, omega, rd.iters)[0],
               f"solve_dist {name} 64^3: {rd.iters} iterations, serial "
               f"{rs.iters}, or the field differs")
         print(f"solve_dist {name} 64^3 f32 over (2, 2, 2): {rd.iters} "
@@ -2797,9 +2851,10 @@ def main():
               f"{tag}", flush=True)
 
     # pbicgstab with psor as its preconditioner: 8 sweeps an application in
-    # the step's own layout, two applications an iteration
+    # the step's own layout, one launch of 8 lagged sweeps, two
+    # applications an iteration
     r, c, wall = krylov(p64, "pbicgstab", "psor", omega=1.1)
-    check(r.res < 1e-5 and c["psor_diag"] == 16 * r.iters,
+    check(r.res < 1e-5 and c["psor_diag"] == 2 * r.iters,
           f"pbicgstab psor 64^3: res {r.res}, {c['psor_diag']} P1 launches for "
           f"{r.iters} iterations")
     print(f"pbicgstab psor 64^3 f32: {r.iters} iterations, res {r.res:e}, "
@@ -2826,33 +2881,27 @@ def main():
                 print(f"CLI 124^3 pcr: {ln.strip()}")
     del p124, r124
 
-    # busy share of the 128^3 float32 paths: 200 sweeps of a solve (eps
-    # 1e-30: no stop), one launch and one host check a sweep, under
-    # torch.profiler
+    # busy share of the 128^3 float32 paths: whole calls of a solve to at
+    # least 200 sweeps (eps 1e-30: no stop), one launch of n sweeps and one
+    # host check a call, under torch.profiler
     diag_busy = {}
     for name, omega in (("psor", 1.1), ("pcr", OMEGA)):
         p = Problem.poisson_cube(128, device=dev)
-        solve(p, name, omega=omega, itr_max=8, eps=1e-30)  # warm-up
+        n_call = diag_launches(p, name, omega, 1)[1]
+        window = -(-200 // n_call) * n_call
+        solve(p, name, omega=omega, itr_max=n_call, eps=1e-30)  # warm-up
         sync()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            solve(p, name, omega=omega, itr_max=200, eps=1e-30)
+            solve(p, name, omega=omega, itr_max=window, eps=1e-30)
             sync()
             wall = time.perf_counter() - t0
-        us = n_ev = 0
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            t = getattr(ev, "self_device_time_total", None)
-            t = ev.self_cuda_time_total if t is None else t
-            if t > 0:
-                us += t
-                n_ev += ev.count
+        us, n_ev = device_time(prof)
         check(us > 0, f"{name}: the profiler recorded no device time")
-        diag_busy[name] = (us / 200, n_ev / 200, us / 1e6 / wall)
-        print(f"timing {name} 128^3 f32 solve window: wall "
-              f"{wall / 200 * 1e3:.4f} ms a sweep, device {us / 200:.1f} us and "
-              f"{n_ev / 200:.2f} device launches a sweep, busy share "
+        diag_busy[name] = (us / window, n_ev / window, us / 1e6 / wall)
+        print(f"timing {name} 128^3 f32 solve window of {window} sweeps: wall "
+              f"{wall / window * 1e3:.4f} ms a sweep, device {us / window:.1f} us "
+              f"and {n_ev / window:.2f} device launches a sweep, busy share "
               f"{us / 1e6 / wall:.3f} {tag}", flush=True)
         del p, prof
     print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
@@ -2989,17 +3038,8 @@ def main():
         solve(p, "mg", omega=1.0, itr_max=20, eps=1e-30)
         sync()
         wall = time.perf_counter() - t0
-    us = k4_us = n_ev = 0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        t = ev.self_cuda_time_total if t is None else t
-        if t > 0:
-            us += t
-            n_ev += ev.count
-            if "rb_tile_kernel" in ev.key:
-                k4_us += t
+    us, n_ev = device_time(prof)
+    k4_us = device_time(prof, "rb_tile_kernel")[0]
     check(us > 0 and k4_us > 0, "mg: the profiler recorded no device time")
     mg_cycle = (mg_wall_us, us / 20, k4_us / us, n_ev / 20, us / 1e6 / wall)
     print(f"timing mg 128^3 f32: wall {mg_wall_us:.1f} us a V-cycle (events, "
@@ -3163,6 +3203,7 @@ def main():
              "ms": per_call[name][0], "plain_ms": per_call[name][1],
              "bound_ms": bms, "bound_by": by, "library_ms": per_call[name][2] if len(per_call[name]) > 2 else None})
         kernels[-1].update(k10_extra.get(name, {}))
+        kernels[-1].update(diag_extra.get(name, {}))
         if name in krylov_launches:
             # the launches of the 128^3 Krylov solves that precondition on it
             kernels[-1]["krylov_launches"] = krylov_launches[name]

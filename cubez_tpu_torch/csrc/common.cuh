@@ -155,4 +155,23 @@ __device__ A block_sum(A v) {
   return tot;
 }
 
+// The sum of v over the CTA's threads (blockDim.x, a multiple of 32, at
+// most 1024) in a fixed order: a warp's lanes by shuffles, then the
+// warps in order.  Thread 0 holds the result.
+template <typename A>
+__device__ A block_sum_any(A v) {
+  __shared__ A warp_sums[32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  A tot = 0;
+  if (warp == 0) {
+    tot = lane < int(blockDim.x >> 5) ? warp_sums[lane] : A(0);
+    for (int o = 16; o > 0; o >>= 1) tot += __shfl_down_sync(0xffffffffu, tot, o);
+  }
+  __syncthreads();  // warp_sums is reused by the next call
+  return tot;
+}
+
 }  // namespace cz

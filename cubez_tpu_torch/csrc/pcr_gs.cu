@@ -1,8 +1,9 @@
-// One lexicographic line Gauss-Seidel sweep for Hopper (sm_90a), kernel
-// P2.  It takes the place of the JAX package's diagonal-wavefront pcr step,
-// cubez_tpu/ops/pcr_gs.py:33 (make_pcr_gs_diag_step), which XLA runs as a
-// fori_loop over the diagonals with the PCR stage tables a diagonal: no
-// pallas_call computes it.
+// n lexicographic line Gauss-Seidel sweeps in one launch for Hopper
+// (sm_90a), kernel P2.  It takes the place of the JAX package's
+// diagonal-wavefront pcr step, cubez_tpu/ops/pcr_gs.py:33
+// (make_pcr_gs_diag_step), which XLA runs as a fori_loop over the
+// diagonals with the PCR stage tables a diagonal: no pallas_call computes
+// it.
 //
 // The reference's pcr, pcr_eda and pcr_esa (cz_solver.f90:848-856; MAF
 // cz_maf.f90:519-572) relax each K-line in place inside the (j, i) loop:
@@ -37,16 +38,43 @@
 // threads, a line's values of a row contiguous in i (coalesced loads, the
 // line form's kBuild rows a thread in flight at once, each row's own x
 // kept in a register for the write), into shared memory, solves, and
-// writes the item back.  In place is safe: a
-// diagonal reads only d - 1 and d + 1.  One cooperative launch a sweep:
-// the CTAs walk the diagonals with a grid-wide sync between two, and the
-// first CTA folds the CTAs' float64 partials in order into r2 on the card.
+// writes the item back.
 //
-// What bounds it on an H100: the sweep reads S and B and writes S once,
-// 3 fields (7.5 us at 128^3 float32 for the inner cells, 3.35 TB/s).  What
-// bounds it more is the chain of 251 diagonals at 128^3, each a build, a
-// PCR solve of log2(n) dependent stages and a write, with a grid-wide
-// barrier between two.
+// One cooperative launch runs n sweeps, in place.  Task (s, d) relaxes the
+// lines of diagonal d in sweep s; its inputs, the tasks that write what it
+// reads, are (s, d - 1) (the upstream lines, new) and (s - 1, d + 1) (the
+// downstream lines, sweep s - 1's; on the last diagonal (s - 1, d), its
+// own old lines, which otherwise comes before (s - 1, d + 1)).  The values
+// (s, d) overwrites, sweep s - 1's of diagonal d, are read by (s - 1, d + 1)
+// (new there), (s, d - 1) (old there) and (s, d) itself: exactly its
+// inputs, so running every task after its inputs orders the writes after
+// the reads too, and every line sees the values of the serial order: n
+// launches of one sweep, bit for bit.  A sweep has its own CTAs, each
+// taking the items it, it + G, ... of each diagonal (G CTAs a sweep).
+// The schedule: each sweep's CTAs walk their diagonals, and after each add
+// one to their sweep's counter (progress.cuh); before diagonal d a CTA's
+// thread 0 waits for its own sweep's counter to show d - 1 done by all G
+// of them (G (d - 2): each waits for that, so no CTA of a sweep runs two
+// diagonals ahead of another) and sweep s - 1's to show d + 1 done.  No
+// grid-wide barrier; the counters are zeroed after the launch's last
+// grid-wide sync, ready for the next.  cuda_kernels/pcr_gs.py states the
+// inputs and the waits in Python (``inputs``, ``flag_waits``), and the CPU
+// tests replay the CTAs in random orders the counters allow on the plain
+// line relaxation.  The longest chain of waits is I + J - 5 + 2 (n - 1)
+// diagonals for n sweeps, against n (I + J - 5) for n launches (128^3,
+// n = 16: 281 against 4016).  (A grid-wide barrier a step of that chain
+// in place of the counters measured slower at every n, PERF.md section 6.)
+// Each CTA folds its threads' float64 sums of dp^2 in order, and after the
+// last grid-wide sync the first CTA folds each sweep's CTA partials in
+// order into r2[s] on the card: no atomics in the sums.
+//
+// What bounds it on an H100: a launch reads S and B and writes S once,
+// 3 fields whatever its n (7.5 us at 128^3 float32 at 3.35 TB/s, 0.47 us
+// a sweep at n = 16), and a sweep does K10's 42 operations a line row
+// (MAF 122; 1.25 us at 128^3 at 67 TFLOP/s).  What bounds it more is the chain of 251 diagonals at 128^3, each a build, a
+// PCR solve of log2(n) dependent stages and a write, with a
+// synchronisation between two; n sweeps in flight share that chain's
+// synchronisations and use n times the CTAs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -55,6 +83,7 @@
 
 #include "pcr.cuh"
 #include "pcr_warp.cuh"
+#include "progress.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -73,17 +102,13 @@ struct GsArgs {
   const T* __restrict__ b;    // B, the same layout
   const T* __restrict__ tab;  // the stage tables, or the MAF weights
   double* partials;           // a float64 sum of dp^2 a CTA
-  double* r2;                 // their fold
+  double* r2;                 // their fold, one a sweep
+  unsigned* prog;             // a counter a sweep, zero at launch
   T omega;
   int K, I, J, pn, L;  // L: lines of a tile-form item
+  int sweeps;          // n, sweeps of the launch
+  int per_sweep;       // G, CTAs of a sweep
 };
-
-__device__ __forceinline__ void sweep_barrier() {
-  if (gridDim.x == 1)
-    __syncthreads();
-  else
-    cg::this_grid().sync();
-}
 
 // A row's loads in LineRows::load.
 enum { kXim, kXjm, kXip, kXjp, kBb, kOwn, kRowIn };
@@ -92,7 +117,7 @@ enum { kXim, kXjm, kXip, kXjp, kBb, kOwn, kRowIn };
 // line (i, j) on the diagonal whose slab starts at sc (sdm, sdp: the
 // diagonals either side, slab_ values from it; bd: B's slab).  x_lo,
 // x_hi: the line's Dirichlet ends.  S's values are read through L2 (other
-// CTAs wrote them before the last barrier).
+// CTAs wrote them before the counters the CTA waited for).
 
 template <typename T, bool kMaf>
 struct LineRows {
@@ -176,16 +201,36 @@ __device__ __forceinline__ double relax_row(T* sc, int I, int i, int r, T s, T x
   return double(mul_rn(dp, dp));
 }
 
+// Runs diagonal(d) for the tasks (s, d) of this CTA's sweep s, each after
+// its inputs.
+template <typename T, typename F>
+__device__ __forceinline__ void run_sweeps(const GsArgs<T>& a, int s, F&& diagonal) {
+  const int d_last = a.I + a.J - 4;
+  unsigned* p = a.prog + s;
+  const unsigned G = a.per_sweep;
+  for (int d = 2; d <= d_last; ++d) {
+    if (threadIdx.x == 0) {
+      if (d > 2) wait_at_least(p, G * (d - 2));                       // (s, d - 1)
+      if (s > 0) wait_at_least(p - 1, G * (min(d + 1, d_last) - 1));  // (s - 1, d + 1)
+    }
+    __syncthreads();
+    diagonal(d);  // its items each end with a __syncthreads
+    if (threadIdx.x == 0) release_add(p);
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void fold(const GsArgs<T>& a, double acc) {
   const double tot = block_sum<kGsThreads>(acc);
   if (threadIdx.x == 0) a.partials[blockIdx.x] = tot;
-  if (gridDim.x > 1) cg::this_grid().sync();
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    double s = 0;
-    for (int q = 0; q < int(gridDim.x); ++q) s += a.partials[q];
-    *a.r2 = s;
-  }
+  cg::this_grid().sync();
+  if (blockIdx.x == 0)
+    for (int q = threadIdx.x; q < a.sweeps; q += kGsThreads) {
+      double r = 0;
+      for (int p = 0; p < a.per_sweep; ++p) r += a.partials[q * a.per_sweep + p];
+      a.r2[q] = r;
+      a.prog[q] = 0;  // every wait of the launch is over
+    }
 }
 
 // ---- the line form ---------------------------------------------------------
@@ -211,13 +256,15 @@ __global__ void __launch_bounds__(kGsThreads) pcr_gs_lines_kernel(
   const MafTables<T> w(a.tab, K, I, J);  // read only under kMaf
   // the build and the relaxation: line l of the item, rows r0, r0 + 32, ...
   const int l = threadIdx.x % kGsLines, r0 = threadIdx.x / kGsLines;
+  // this CTA's sweep and first item of a diagonal
+  const int s = blockIdx.x / a.per_sweep, item0 = blockIdx.x - s * a.per_sweep;
   double acc = 0;
-  for (int d = 2; d <= I + J - 4; ++d) {
+  run_sweeps(a, s, [&](int d) {
     const int i_lo = max(1, d - (J - 2)), i_hi = min(I - 2, d - 1);
     const int items = (i_hi - i_lo + kGsLines) / kGsLines;
     T* sc = a.s + size_t(d) * slab;
     const T* bd = a.b + size_t(d) * slab;
-    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    for (int it = item0; it < items; it += a.per_sweep) {
       const int i0 = i_lo + it * kGsLines;
       const int i = i0 + l;
       // 1. the right-hand sides of the item's lines into shared memory,
@@ -288,8 +335,7 @@ __global__ void __launch_bounds__(kGsThreads) pcr_gs_lines_kernel(
       }
       __syncthreads();  // the solutions are read before the next item's rows land
     }
-    sweep_barrier();  // diagonal d is written before d + 1 reads it
-  }
+  });
   fold(a, acc);
 }
 
@@ -304,13 +350,14 @@ __global__ void __launch_bounds__(kGsThreads) pcr_gs_tile_kernel(
   const size_t slab = size_t(K) * I, nL = size_t(n) * L;
   const int l = threadIdx.x % L, r0 = threadIdx.x / L, rs = kGsThreads / L;
   const MafTables<T> w(a.tab, K, I, J);  // read only under kMaf
+  const int s = blockIdx.x / a.per_sweep, item0 = blockIdx.x - s * a.per_sweep;
   double acc = 0;
-  for (int d = 2; d <= I + J - 4; ++d) {
+  run_sweeps(a, s, [&](int d) {
     const int i_lo = max(1, d - (J - 2)), i_hi = min(I - 2, d - 1);
     const int items = (i_hi - i_lo + L) / L;
     T* sc = a.s + size_t(d) * slab;
     const T* bd = a.b + size_t(d) * slab;
-    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    for (int it = item0; it < items; it += a.per_sweep) {
       const int i = i_lo + it * L + l;
       const bool line = i <= i_hi;
       const LineRows<T, kMaf> lr(sc, sc - slab, sc + slab, bd, w, K, I, line ? i : i_lo,
@@ -338,8 +385,7 @@ __global__ void __launch_bounds__(kGsThreads) pcr_gs_tile_kernel(
                            __ldcg(sc + size_t(r + 1) * I + i), a.omega);
       __syncthreads();
     }
-    sweep_barrier();
-  }
+  });
   fold(a, acc);
 }
 
@@ -400,9 +446,9 @@ int max_blocks(int slabs, int maf, int smem, int device, int* out) {
   return cudaSuccess;
 }
 
-// ptrs: s, b, tab, partials, r2.  iargs: slabs (0: tile), maf, K, I, J, pn,
-// L, grid, smem, device.  The wrapper builds both arrays once for a set of
-// fields.
+// ptrs: s, b, tab, partials, r2, prog.  iargs: slabs (0: tile), maf, K, I,
+// J, pn, L, grid, smem, device, sweeps, per_sweep.  The wrapper
+// builds both arrays once for a set of fields.
 template <typename T>
 int launch(void* const* ptrs, const int* iargs, double omega, void* stream) {
   const int slabs = iargs[0], maf = iargs[1], grid = iargs[7], smem = iargs[8];
@@ -414,16 +460,21 @@ int launch(void* const* ptrs, const int* iargs, double omega, void* stream) {
   a.tab = static_cast<const T*>(ptrs[2]);
   a.partials = static_cast<double*>(ptrs[3]);
   a.r2 = static_cast<double*>(ptrs[4]);
+  a.prog = static_cast<unsigned*>(ptrs[5]);
   a.omega = T(omega);
   a.K = iargs[2];
   a.I = iargs[3];
   a.J = iargs[4];
   a.pn = iargs[5];
   a.L = iargs[6];
+  a.sweeps = iargs[10];
+  a.per_sweep = iargs[11];
   const void* k = gs_kernel<T>(slabs, maf != 0);
   if (k == nullptr || grid < 1 || a.K < 3 || a.I < 3 || a.J < 3 || a.b == nullptr ||
       a.tab == nullptr || (slabs > 0 && a.K - 2 > 32 * slabs) ||
-      (slabs == 0 && (a.L < 1 || kGsThreads % a.L != 0)))
+      (slabs == 0 && (a.L < 1 || kGsThreads % a.L != 0)) || a.sweeps < 1 ||
+      a.per_sweep < 1 || size_t(grid) != size_t(a.sweeps) * a.per_sweep ||
+      a.prog == nullptr)
     return cudaErrorInvalidValue;
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kGsThreads), args, size_t(smem),

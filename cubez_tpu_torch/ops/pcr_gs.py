@@ -32,27 +32,27 @@ from .pcr import num_stage, pcr_reduce_var
 from .psor_scan import diagonals, field_shape, line_range, make_skew
 
 
-def pcr_gs_diag_plain(S, B, omega: float, tab=None):
-    """Plain twin of kernel P2: one lexicographic line Gauss-Seidel sweep of
-    the diagonal-layout field ``S`` with right-hand side ``B``; ``tab``
-    (``rbpack.maf_tables`` of the (K, I, J) field) selects MAF.  Returns (a
-    new S, float64 sum of dp^2)."""
-    K, I, J = field_shape(S)
+def line_relaxer(shape_kij, omega: float, dtype, device, tab=None):
+    """``relax(S, B, d, lo, hi)``: the plain line relaxation of kernel P2 on
+    the diagonal layout: lines (i, d - i), lo <= i <= hi, of diagonal d of
+    ``S`` (in place, each line's right-hand side from diagonals d - 1 and
+    d + 1 as they stand), returning the float64 sum of their dp^2.
+    ``tab`` (``rbpack.maf_tables`` of the (K, I, J) field) selects MAF.
+    Lines are independent of one another, so any split of a diagonal gives
+    the same field."""
+    K, I, J = shape_kij
     n = K - 2
     pn = num_stage(n)
-    dt, dev = S.dtype, S.device
-    S = S.clone()
-    om = torch.tensor(omega, dtype=dt, device=dev)
-    r2 = torch.zeros((), dtype=torch.float64, device=dev)
+    om = torch.tensor(omega, dtype=dtype, device=device)
     if tab is None:
-        r6 = torch.tensor(_R6[dt], dtype=dt, device=dev)
-        ctab = stage_tables(n, dt, dev)
+        r6 = torch.tensor(_R6[dtype], dtype=dtype, device=device)
+        ctab = stage_tables(n, dtype, device)
     else:
         w = table_views(tab, (K, I, J))
-        half = torch.tensor(0.5, dtype=dt, device=dev)
+        half = torch.tensor(0.5, dtype=dtype, device=device)
         wzm_k, wzp_k, c3 = (w[f][1:-1, None] for f in ("wzm", "wzp", "c3"))
-    for d in diagonals(I, J):
-        lo, hi = line_range(d, I, J)
+
+    def relax(S, B, d, lo, hi):
         xm1, xc, xp1 = S[d - 1], S[d], S[d + 1]
         lines = slice(lo, hi + 1)
         own = xc[1:-1, lines]
@@ -67,7 +67,7 @@ def pcr_gs_diag_plain(S, B, omega: float, tab=None):
             dl[-1] = dl[-1] + x_hi * r6
             sol = pcr_solve(dl, ctab, pn)
         else:
-            i = torch.arange(lo, hi + 1, device=dev)
+            i = torch.arange(lo, hi + 1, device=device)
             j = d - i
             dw = half / ((w["c1"][i] + w["c2"][j]) + c3)  # (n, lines)
             wzm, wzp = wzm_k * dw, wzp_k * dw
@@ -83,36 +83,60 @@ def pcr_gs_diag_plain(S, B, omega: float, tab=None):
             sol = pcr_reduce_var(a, c, dl, pn)
         dp = (sol - own) * om
         S[d, 1:-1, lines] = own + dp
-        r2 = r2 + (dp * dp).sum(dtype=torch.float64)
+        return (dp * dp).sum(dtype=torch.float64)
+
+    return relax
+
+
+def pcr_gs_diag_plain(S, B, omega: float, tab=None):
+    """Plain twin of kernel P2: one lexicographic line Gauss-Seidel sweep of
+    the diagonal-layout field ``S`` with right-hand side ``B``; ``tab``
+    (``rbpack.maf_tables`` of the (K, I, J) field) selects MAF.  Returns (a
+    new S, float64 sum of dp^2)."""
+    K, I, J = shape = field_shape(S)
+    relax = line_relaxer(shape, omega, S.dtype, S.device, tab)
+    S = S.clone()
+    r2 = torch.zeros((), dtype=torch.float64, device=S.device)
+    for d in diagonals(I, J):
+        r2 = r2 + relax(S, B, d, *line_range(d, I, J))
     return S, r2
 
 
 def make_pcr_gs_diag_step(shape_kij, dtype, omega: float, mc=None,
-                          plain: bool = False):
-    """``step(S, B) -> (S, r2)``: one lexicographic line Gauss-Seidel sweep
+                          plain: bool = False, device=None,
+                          divides: int | None = None):
+    """``step(S, B) -> (S, r2)``: lexicographic line Gauss-Seidel sweeps
     (pcr, pcr_eda, pcr_esa; with ``mc`` their ``_maf`` forms) on the
-    diagonal layout, the standard inner mask only.  On a CUDA tensor it is
-    one launch of kernel P2, in place, unless ``plain``, which runs the
-    twin on any device (as a CPU tensor does); r2 is a 0-d float64 tensor.
+    diagonal layout, the standard inner mask only.  For a CUDA ``device``
+    (where the fields live) it is one launch of kernel P2, in place, of
+    ``iters_per_call`` = n sweeps (``pcr_gs.sweeps_for``; ``divides`` as
+    for ops/psor_scan.py's step), r2 of shape (n,), and ``single`` the
+    one-sweep launch; otherwise, or with ``plain``, one sweep of the twin a
+    call on any device (as for a CPU tensor), r2 0-d float64.
     ``pad``/``unpad`` convert the (K, I, J) field to and from the layout;
-    ``iters_per_call`` and ``check_every_default`` are 1, as for
-    ops/psor_scan.py's step."""
+    ``check_every_default`` is 1: a host check a call."""
     # the kernel's module takes its twin from this one
     from ..cuda_kernels import pcr_gs as p2
 
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the diagonal steps take float32 or float64, not {dtype}")
 
-    launch = p2.PcrGsSweep(omega, mc)
+    def make(launch):
+        def step(S, B):
+            if plain:
+                return pcr_gs_diag_plain(S, B, omega, launch.tables(S))
+            return p2.pcr_gs_diag(S, B, omega, mc, launcher=launch)
 
-    def step(S, B):
-        if plain:
-            return pcr_gs_diag_plain(S, B, omega, launch.tables(S))
-        return p2.pcr_gs_diag(S, B, omega, mc, launcher=launch)
+        step.iters_per_call = launch.sweeps
+        step.launcher = launch
+        return step
 
+    n = 1
+    if not plain and device is not None and torch.device(device).type == "cuda":
+        n = p2.sweeps_for(shape_kij, dtype, mc is not None, device, divides)
+    step = make(p2.PcrGsSweep(omega, mc, sweeps=n))
+    step.single = step if n == 1 else make(p2.PcrGsSweep(omega, mc))
     skew, unskew, _ = make_skew(shape_kij)
     step.pad, step.unpad = skew, unskew
-    step.iters_per_call = step.check_every_default = 1
-    step.single = step
-    step.launcher = launch
+    step.check_every_default = 1
     return step

@@ -88,32 +88,41 @@ def psor_diag_plain(S, B, omega: float, mc=None):
 
 
 def make_psor_diag_step(shape_kij, dtype, omega: float, mc=None,
-                        plain: bool = False):
-    """``step(S, B) -> (S, r2)``: one lexicographic point-SOR sweep (psor,
+                        plain: bool = False, device=None,
+                        divides: int | None = None):
+    """``step(S, B) -> (S, r2)``: lexicographic point-SOR sweeps (psor,
     with ``mc`` psor_maf) on the diagonal layout, the standard inner mask
-    only.  On a CUDA tensor it is one launch of kernel P1, in place, unless
-    ``plain``, which runs the twin on any device (as a CPU tensor does);
-    r2 is a 0-d float64 tensor.  ``pad``/``unpad`` convert the (K, I, J)
-    field to and from the layout; ``iters_per_call`` and
-    ``check_every_default`` are 1, as the JAX package's step sets them: a
-    sweep is a serial chain of 2N - 3 diagonals, so a host check an
-    iteration costs nothing beside it."""
+    only.  For a CUDA ``device`` (where the fields live) it is one launch
+    of kernel P1, in place, of ``iters_per_call`` = n sweeps
+    (``psor.sweeps_for``: the plan's; with ``divides`` the most that divide
+    it and fit the card, for a preconditioner's fixed sweeps), r2 of shape
+    (n,), and ``single`` the one-sweep launch; otherwise, or with
+    ``plain``, one sweep of the twin a call on any device (as for a CPU
+    tensor), r2 0-d float64.  ``pad``/``unpad`` convert the (K, I, J)
+    field to and from the layout; ``check_every_default`` is 1, as the JAX
+    package's step sets it: a host check a call."""
     # the kernel's module takes its twin from this one
     from ..cuda_kernels import psor as p1
 
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the diagonal steps take float32 or float64, not {dtype}")
 
-    launch = p1.PsorSweep(omega, mc)
+    def make(launch):
+        def step(S, B):
+            if plain:
+                return psor_diag_plain(S, B, omega, mc)
+            return p1.psor_diag(S, B, omega, mc, launcher=launch)
 
-    def step(S, B):
-        if plain:
-            return psor_diag_plain(S, B, omega, mc)
-        return p1.psor_diag(S, B, omega, mc, launcher=launch)
+        step.iters_per_call = launch.sweeps
+        step.launcher = launch
+        return step
 
+    n = 1
+    if not plain and device is not None and torch.device(device).type == "cuda":
+        n = p1.sweeps_for(shape_kij, device, divides)
+    step = make(p1.PsorSweep(omega, mc, n))
+    step.single = step if n == 1 else make(p1.PsorSweep(omega, mc))
     skew, unskew, _ = make_skew(shape_kij)
     step.pad, step.unpad = skew, unskew
-    step.iters_per_call = step.check_every_default = 1
-    step.single = step
-    step.launcher = launch
+    step.check_every_default = 1
     return step

@@ -284,7 +284,8 @@ def _make_dist_maf_step(problem: Problem, cmesh: CubeMesh, kind: str,
 
 def make_gathered_step(problem: Problem, cmesh: CubeMesh, name: str,
                        omega: float, plain: bool = False,
-                       b_arg_is_problem_rhs: bool = True):
+                       b_arg_is_problem_rhs: bool = True,
+                       divides: int | None = None):
     """(step, pre, post) of a solver the JAX package reaches on a mesh only
     through auto-SPMD with serial semantics (its parallel/api.py:187-225):
     the exact serial orders (psor, pcr_gs) and the extensions (mg, fmg,
@@ -293,10 +294,13 @@ def make_gathered_step(problem: Problem, cmesh: CubeMesh, name: str,
     the result back; counts and fields are the serial solve's bit for bit.
 
     psor and pcr_gs gather on the first block's device, into the diagonal
-    layout of their step of ``get_fused_step`` (kernel P1 or P2, or with
-    ``plain`` its twin).  The extensions gather on the device of the
-    problem's fields, where ``steps.make_step`` builds their step (K4 on
-    mg's finest level; ``plain`` and ``b_arg_is_problem_rhs`` as there).
+    layout of their step of ``get_fused_step`` built for that device
+    (kernel P1 or P2, n sweeps a call on a card, ``divides`` as there; or
+    with ``plain`` its twin), which is returned as it is,
+    ``iters_per_call`` and ``single`` too.
+    The extensions gather on the device of the problem's fields, where
+    ``steps.make_step`` builds their step (K4 on mg's finest level;
+    ``plain`` and ``b_arg_is_problem_rhs`` as there).
     ValueError for a non-standard mask, as the serial step raises."""
     kind, _ = parse_name(name)
     if kind in EXTENSIONS:
@@ -305,9 +309,10 @@ def make_gathered_step(problem: Problem, cmesh: CubeMesh, name: str,
         dev, pad, unpad = problem.x0.device, None, None
     else:
         require_standard_mask(problem, name)
+        dev = cmesh.devices[0]
         step = get_fused_step(kind, problem.grid, omega, mc=problem.mc,
-                              plain=plain)
-        dev, pad, unpad = cmesh.devices[0], step.pad, step.unpad
+                              plain=plain, divides=divides, device=dev)
+        pad, unpad = step.pad, step.unpad
 
     def pre(blocks):
         x = cmesh.gather(blocks, device=dev)

@@ -95,7 +95,8 @@ def make_dist_precon(problem: Problem, cmesh: CubeMesh, precond, omega: float,
     if kind in steps_mod.DIAGONAL + steps_mod.EXTENSIONS:
         step, pre, post = make_gathered_step(pprob, cmesh, precond, omega,
                                              plain=impl == "plain",
-                                             b_arg_is_problem_rhs=False)
+                                             b_arg_is_problem_rhs=False,
+                                             divides=sweeps)
         return sweeps_precon(steps_mod.labeled(precond, step), pre, post,
                              sweeps=sweeps)
     step = None

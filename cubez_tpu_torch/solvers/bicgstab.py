@@ -182,7 +182,8 @@ def make_precon(problem: Problem, precond, omega: float, impl: str = "auto"):
         return lambda v: v
     precond, omega, sweeps = precon_plan(precond, omega)
     return sweeps_precon(*relaxation_route(problem, precond, omega, impl,
-                                           b_arg_is_problem_rhs=False),
+                                           b_arg_is_problem_rhs=False,
+                                           divides=sweeps),
                          sweeps=sweeps)
 
 

@@ -15,7 +15,8 @@ from . import steps as steps_mod
 
 
 def get_fused_step(kind: str, grid, omega: float, mc=None,
-                   plain: bool = False, b_is_zero: bool = False):
+                   plain: bool = False, b_is_zero: bool = False,
+                   divides: int | None = None, device=None):
     """The kernel step for ``kind`` in the JAX package's order, or None
     where no kernel step exists (a line solver with K - 2 < 2).
 
@@ -28,18 +29,21 @@ def get_fused_step(kind: str, grid, omega: float, mc=None,
     sweep K4.  jacobi: K4.  pcr_rb: the packed line step K5, and where its
     layout refuses (odd I) K6's red-black form.  pcr (pcr_j_esa): K6's
     line-Jacobi form.  psor: kernel P1, pcr_gs (pcr, pcr_eda, pcr_esa):
-    kernel P2, one launch a sweep on the diagonal layout (they always read
-    b).  ``mc`` selects the MAF forms.  ``plain`` makes the step run the
+    kernel P2, on the diagonal layout (they always read b), n lagged
+    sweeps a launch where the step runs on a card: on ``device``, by
+    default the grid's (with ``divides``, a preconditioner's fixed sweeps,
+    an n that divides it).
+    ``mc`` selects the MAF forms.  ``plain`` makes the step run the
     plain twins on any device; otherwise the kernels run for CUDA tensors.
     Every step carries ``pad``/``unpad``, the converters to and from its
     state layout (the packed colour folds, K4's and K6's copy, or the
     diagonal skew)."""
     shape, dtype = grid.shape_kij, grid.dtype
     kw = dict(omega=omega, mc=mc, plain=plain)
-    if kind == "psor":
-        return make_psor_diag_step(shape, dtype, **kw)
-    if kind == "pcr_gs":
-        return make_pcr_gs_diag_step(shape, dtype, **kw)
+    if kind in ("psor", "pcr_gs"):
+        build = make_psor_diag_step if kind == "psor" else make_pcr_gs_diag_step
+        return build(shape, dtype, divides=divides, **kw,
+                     device=grid.device if device is None else device)
     if kind == "jacobi":
         return sweeps.make_fused_sweep(kind, shape, dtype, b_is_zero=b_is_zero,
                                        **kw)
@@ -71,7 +75,8 @@ def get_fused_step(kind: str, grid, omega: float, mc=None,
 
 
 def relaxation_route(problem, solver: str, omega: float, impl: str = "auto",
-                     b_arg_is_problem_rhs: bool = True):
+                     b_arg_is_problem_rhs: bool = True,
+                     divides: int | None = None):
     """``(step, pre, post)`` of the serial step ``solve`` runs for a
     relaxation, line or extension solver name, and the preconditioners
     for theirs: with the standard mask the kernel step of
@@ -80,8 +85,10 @@ def relaxation_route(problem, solver: str, omega: float, impl: str = "auto",
     sweep of ``steps.make_step`` (pre and post None); for the extensions
     (mg, fmg, fd) ``steps.make_step``'s step.  ``impl`` 'plain' runs the
     twins.  ``b_arg_is_problem_rhs`` False (a preconditioner, driven with
-    Krylov vectors as b) keeps the steps from skipping a zero b.  The step
-    carries the solver's name as its profiler label (``steps.labeled``).
+    Krylov vectors as b) keeps the steps from skipping a zero b; with
+    ``divides`` (its fixed sweeps) the diagonal steps run an n that
+    divides it a call.  The step carries the solver's name as its
+    profiler label (``steps.labeled``).
     ``perf.profile.profile_solve`` times the step this returns."""
     kind, _ = steps_mod.parse_name(solver)
     plain = impl == "plain"
@@ -94,7 +101,8 @@ def relaxation_route(problem, solver: str, omega: float, impl: str = "auto",
             step = get_fused_step(
                 kind, problem.grid, omega,
                 mc=steps_mod.maf_coeffs(problem, solver), plain=plain,
-                b_is_zero=b_arg_is_problem_rhs and problem.rhs_is_inner_zero())
+                b_is_zero=b_arg_is_problem_rhs and problem.rhs_is_inner_zero(),
+                divides=divides)
         if step is not None:
             pre, post = step.pad, step.unpad
         else:

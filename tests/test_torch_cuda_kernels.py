@@ -1388,9 +1388,9 @@ def test_krylov_syncs_the_host_once_an_iteration(dev, path):
 
 # ---- slice 6: P1 (psor) and P2 (pcr_gs) on the diagonal layout -------------
 
-# (K, I, J): a ragged and a tall shape, one inner row, and the grid-wide
-# sync between phases or diagonals (P1 at (70, 140, 150): two CTAs; P2
-# wherever its items outnumber one CTA)
+# (K, I, J): a ragged and a tall shape, one inner row, and the progress
+# counters between CTAs of one sweep (P1 past one chunk; P2 wherever its
+# items outnumber one CTA)
 DIAG_SHAPES = [(32, 32, 32), (37, 22, 45), (6, 140, 150), (70, 20, 18),
                (3, 7, 5), (70, 140, 150)]
 
@@ -1413,29 +1413,56 @@ def _diag_mc(shape, dtype, dev, maf):
                                               device=dev)[0].mc
 
 
+def _sweeps_match_twin_calls(kfn, pfn, S, sweeps, launches, what):
+    """Two launches of ``sweeps`` sweeps (``kfn``, in place) against as
+    many calls of the plain twin ``pfn``: the field bit for bit after each
+    launch, each sweep's r2 within 1e-12 relative (float64 sums in another
+    order), one count a launch (``launches()``), and the same r2 bits from
+    the same start (the fold's order is fixed)."""
+    Sk, Sp = S.clone(), S.clone()
+    before = launches()
+    first = None
+    for call in range(2):
+        Sk, rk = kfn(Sk)
+        rk = rk.reshape(-1).clone()
+        rp = []
+        for _ in range(sweeps):
+            Sp, r = pfn(Sp)
+            rp.append(float(r))
+        torch.cuda.synchronize()
+        assert torch.equal(Sk, Sp), f"{what}: launch {call}"
+        assert rk.numel() == sweeps
+        for got, want in zip(rk.tolist(), rp):
+            assert got == pytest.approx(want, rel=1e-12, abs=0)
+        first = rk if first is None else first
+    assert launches() - before == 2
+    again, ra = kfn(S.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(ra.reshape(-1), first)
+
+
+@pytest.mark.parametrize("sweeps", [1, 4])
 @pytest.mark.parametrize("maf", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", DIAG_SHAPES)
-def test_p1_is_bitwise_its_twin(dev, shape, dtype, maf):
-    """Three sweeps of P1 (in place, one launch each) equal three of the
-    plain twin bit for bit, float32 and float64; the residuals to 1e-10
-    (both float64 sums, in another order)."""
+def test_p1_is_bitwise_its_twin(dev, shape, dtype, maf, sweeps):
+    """Two launches of P1 of one or four sweeps (in place) equal as many
+    sweeps of the plain twin bit for bit, float32 and float64; each sweep's residual to 1e-12 (both float64
+    sums, in another order), the same bits from run to run; one count a
+    launch."""
     from cubez_tpu_torch.cuda_kernels import psor as p1
     from cubez_tpu_torch.ops import psor_scan
 
     S, B = _diag_inputs(shape, dtype, dev, sum(shape))
     mc = _diag_mc(shape, dtype, dev, maf)
-    launch = p1.PsorSweep(1.1, mc)
-    Sk, Sp = S.clone(), S.clone()
-    before = (p1.psor_diag.launches, p1.psor_diag.maf_launches)
-    for _ in range(3):
-        Sk, rk = p1.psor_diag(Sk, B, 1.1, mc, launcher=launch)
-        Sp, rp = psor_scan.psor_diag_plain(Sp, B, 1.1, mc)
-        torch.cuda.synchronize()
-        assert torch.equal(Sk, Sp)
-        assert float(rk) == pytest.approx(float(rp), rel=1e-10)
-    assert p1.psor_diag.launches - before[0] == 3
-    assert p1.psor_diag.maf_launches - before[1] == (3 if maf else 0)
+    launch = p1.PsorSweep(1.1, mc, sweeps=sweeps)
+    before_maf = p1.psor_diag.maf_launches
+    _sweeps_match_twin_calls(
+        lambda S_: p1.psor_diag(S_, B, 1.1, mc, launcher=launch),
+        lambda S_: psor_scan.psor_diag_plain(S_, B, 1.1, mc), S, sweeps,
+        lambda: p1.psor_diag.launches, f"P1 {shape} {dtype} maf={maf}")
+    assert launch.plan.sweeps == sweeps
+    assert p1.psor_diag.maf_launches - before_maf == (3 if maf else 0)
     assert _build_lib().cz_psor_threads_per_block() == p1.THREADS
 
 
@@ -1445,14 +1472,16 @@ def _build_lib():
     return _build.load()
 
 
+@pytest.mark.parametrize("sweeps", [1, 4])
 @pytest.mark.parametrize("form", ["lines", "tile"])
 @pytest.mark.parametrize("maf", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", DIAG_SHAPES + [(600, 14, 12)])
-def test_p2_is_bitwise_its_twin(dev, shape, dtype, maf, form):
-    """Three sweeps of P2 in either form (the tile form forced on short
-    lines; 598-row lines take it by themselves) equal three of the plain
-    twin bit for bit; the residuals to 1e-10."""
+def test_p2_is_bitwise_its_twin(dev, shape, dtype, maf, form, sweeps):
+    """Two launches of P2 of one or four sweeps in either form (the tile
+    form forced on short lines; 598-row lines take it by themselves) equal
+    as many sweeps of the plain twin bit for bit; each sweep's residual to 1e-12, the same bits from run to run;
+    one count a launch."""
     from cubez_tpu_torch.cuda_kernels import pcr_gs as p2
     from cubez_tpu_torch.ops import pcr_gs
 
@@ -1460,18 +1489,31 @@ def test_p2_is_bitwise_its_twin(dev, shape, dtype, maf, form):
         pytest.skip("lines past the line form")
     S, B = _diag_inputs(shape, dtype, dev, 7 * sum(shape))
     mc = _diag_mc(shape, dtype, dev, maf)
-    launch = p2.PcrGsSweep(1.5, mc, form=None if form == "lines" else "tile")
-    Sk, Sp = S.clone(), S.clone()
-    before = dict(p2.pcr_gs_diag.variant_launches)
-    for _ in range(3):
-        Sk, rk = p2.pcr_gs_diag(Sk, B, 1.5, mc, launcher=launch)
-        Sp, rp = pcr_gs.pcr_gs_diag_plain(Sp, B, 1.5, launch.tables(Sp))
-        torch.cuda.synchronize()
-        assert torch.equal(Sk, Sp)
-        assert float(rk) == pytest.approx(float(rp), rel=1e-10)
-    assert launch.plan.form == form
+    launch = p2.PcrGsSweep(1.5, mc, form=None if form == "lines" else "tile",
+                           sweeps=sweeps)
+    tabs = launch.tables(S)
     key = (form, maf)
-    assert p2.pcr_gs_diag.variant_launches.get(key, 0) - before.get(key, 0) == 3
+    _sweeps_match_twin_calls(
+        lambda S_: p2.pcr_gs_diag(S_, B, 1.5, mc, launcher=launch),
+        lambda S_: pcr_gs.pcr_gs_diag_plain(S_, B, 1.5, tabs), S, sweeps,
+        lambda: p2.pcr_gs_diag.variant_launches.get(key, 0),
+        f"P2 {shape} {dtype} maf={maf} {form}")
+    assert launch.plan.form == form and launch.plan.sweeps == sweeps
+
+
+def test_diag_launchers_refuse_sweeps_past_the_card(dev):
+    """A launch of more sweeps than the card holds together raises before
+    anything runs; nothing drops to fewer sweeps."""
+    from cubez_tpu_torch.cuda_kernels import pcr_gs as p2
+    from cubez_tpu_torch.cuda_kernels import psor as p1
+
+    S, B = _diag_inputs((64, 64, 64), torch.float32, dev, 5)
+    before = (p1.psor_diag.launches, p2.pcr_gs_diag.launches)
+    with pytest.raises(ValueError, match="do not fit"):
+        p1.PsorSweep(1.1, sweeps=10 ** 4)(S, B)
+    with pytest.raises(ValueError, match="do not fit"):
+        p2.PcrGsSweep(1.5, sweeps=10 ** 5)(S, B)
+    assert (p1.psor_diag.launches, p2.pcr_gs_diag.launches) == before
 
 
 @pytest.mark.parametrize("name,omega", [("psor", 1.1), ("psor_maf", 1.1),
@@ -1479,23 +1521,58 @@ def test_p2_is_bitwise_its_twin(dev, shape, dtype, maf, form):
 def test_diag_solves_on_cuda_are_bitwise_their_plain_solves(dev, name, omega):
     """A 32^3 float32 solve on P1/P2 gives the plain-twin solve's count
     and field bit for bit and its history to 1e-12 (float64 sums of dp^2
-    in another order), with one launch a sweep and a host check a sweep
-    (check_every_default 1: no sweep past the stop)."""
+    in another order), with one launch of n sweeps a call and a host check
+    a call, the stopping call replayed on the one-sweep launch: ceil(iters
+    / n) launches and the stop's singles."""
     from cubez_tpu_torch.cuda_kernels import pcr_gs as p2
     from cubez_tpu_torch.cuda_kernels import psor as p1
+    from cubez_tpu_torch.solvers.fused_cache import get_fused_step
 
     w = p1.psor_diag if name.startswith("psor") else p2.pcr_gs_diag
     p = czt.Problem.poisson_cube(32, device=dev, maf=name.endswith("_maf"))
+    kind = "psor" if name.startswith("psor") else "pcr_gs"
+    n = get_fused_step(kind, p.grid, omega, mc=p.mc).iters_per_call
+    assert n > 1
     before = w.launches
     r = czt.solve(p, name, omega=omega, itr_max=4000)
     torch.cuda.synchronize()
-    assert w.launches - before == r.iters
+    calls = -(-r.iters // n)
+    singles = r.iters - n * (calls - 1) if r.iters % n else 0
+    assert w.launches - before == calls + singles
     rp = czt.solve(p, name, omega=omega, itr_max=4000, impl="plain")
     torch.cuda.synchronize()
-    assert w.launches - before == r.iters  # the plain solve launches none
+    assert w.launches - before == calls + singles  # the plain solve launches none
     assert r.iters == rp.iters and r.res < 1e-5 and torch.equal(r.x, rp.x)
     # the sums of dp^2, float64 on both sides, fold in another order
     torch.testing.assert_close(r.history, rp.history, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("name", ["psor", "pcr"])
+def test_gathered_diag_step_runs_where_the_blocks_are(dev, name):
+    """solve_dist's gathered psor/pcr step is built for the first block's
+    device, not the problem's: a CUDA problem on a mesh of CPU blocks runs
+    the twin one sweep a call and gives the serial host solve's count,
+    field and history bit for bit, launching no kernel."""
+    from cubez_tpu_torch.cuda_kernels import pcr_gs as p2
+    from cubez_tpu_torch.cuda_kernels import psor as p1
+    from cubez_tpu_torch.parallel.dist import make_gathered_step
+
+    p = czt.Problem.poisson_cube(12, device=dev)
+    cm = czt.make_mesh((12, 12, 12), devices=["cpu"] * 8, div=(2, 2, 2))
+    step, _, _ = make_gathered_step(p, cm, name, 1.1)
+    assert step.iters_per_call == 1 and step.single is step
+    before = (p1.psor_diag.launches, p2.pcr_gs_diag.launches)
+    rd = czt.solve_dist(p, cm, name, omega=1.1, itr_max=4000)
+    rs = czt.solve(czt.Problem.poisson_cube(12, device="cpu"), name, omega=1.1,
+                   itr_max=4000)
+    assert (p1.psor_diag.launches, p2.pcr_gs_diag.launches) == before
+    assert rd.iters == rs.iters > 0
+    assert torch.equal(rd.x.cpu(), rs.x) and torch.equal(rd.history.cpu(), rs.history)
+    # a CPU problem on a mesh of the card runs the n-sweep launches there
+    pc = czt.Problem.poisson_cube(12, device="cpu")
+    step, _, _ = make_gathered_step(pc, czt.make_mesh((12, 12, 12), devices=[dev] * 8,
+                                                      div=(2, 2, 2)), name, 1.1)
+    assert step.iters_per_call > 1
 
 
 def test_diag_solvers_refuse_a_nonstandard_mask_on_cuda(dev):

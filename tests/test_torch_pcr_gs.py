@@ -263,3 +263,102 @@ def test_cpu_wrapper_runs_the_twin_and_counts_nothing():
     assert (p2.pcr_gs_diag.launches, p2.pcr_gs_diag.variant_launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         p2.PcrGsSweep(OMEGA)(S, B)
+
+
+# ---- P2's lagged schedule, replayed on the plain line relaxation -------------
+
+TINY = [(3, 7, 5), (6, 5, 7), (12, 9, 14)]  # (K, I, J)
+
+
+@pytest.mark.parametrize("ctas", [1, 2])
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", TINY)
+def test_lagged_schedule_is_n_serial_sweeps(shape, dtype, maf, sweeps, ctas):
+    """P2's launch of n sweeps, replayed item by item (items of 2 lines,
+    one or two CTAs a sweep) on the twin's line relaxation in place,
+    leaves the field of n serial sweeps of the plain twin bit for bit:
+    each CTA walks its diagonals as ``flag_waits`` lets it, in a random
+    order, every task's inputs are done by all their CTAs when it runs,
+    and nothing deadlocks."""
+    tdt = getattr(torch, dtype)
+    K, I, J = shape
+    x, b = (torch.from_numpy(a) for a in _fields(shape, dtype, 13 + sweeps))
+    skew, _, _ = psor_scan.make_skew(shape)
+    S0, B = skew(x), skew(b)
+    mc = (tmaf.MafCoeffs.from_coords(*(torch.linspace(0, 1, m, dtype=tdt) ** 1.3
+                                       for m in (I, J, K)))
+          if maf else None)
+    tab = maf_tables(mc, shape, tdt)
+    ref = S0
+    for _ in range(sweeps):
+        ref, _ = pcr_gs.pcr_gs_diag_plain(ref, B, OMEGA, tab)
+    relax = pcr_gs.line_relaxer(shape, OMEGA, tdt, "cpu", tab)
+    S = S0.clone()
+    rng = np.random.default_rng(sweeps)
+    G, per_item = ctas, 2
+    d_last = I + J - 4
+
+    def run(d, g):
+        """CTA g's items of diagonal d: g, g + G, ..."""
+        lo, hi = psor_scan.line_range(d, I, J)
+        for i0 in range(lo + g * per_item, hi + 1, G * per_item):
+            relax(S, B, d, i0, min(hi, i0 + per_item - 1))
+
+    nxt = {(s, g): 2 for s in range(sweeps) for g in range(G)}
+    count = [0] * sweeps
+    done = set()  # (s, d, g)
+    while nxt:
+        ready = [k for k in nxt if all(
+            count[q] >= v for q, v in p2.flag_waits(shape, G, k[0], nxt[k]))]
+        assert ready, "the counters deadlock"
+        s, g = key = ready[rng.integers(len(ready))]
+        d = nxt[key]
+        for q in p2.inputs((s, d), shape):
+            assert all((*q, h) in done for h in range(G))
+        run(d, g)
+        done.add((s, d, g))
+        count[s] += 1
+        nxt[key] += 1
+        if nxt[key] > d_last:
+            del nxt[key]
+    assert len(done) == sweeps * (d_last - 1) * G
+    assert torch.equal(S, ref)
+
+
+def test_launch_grid_sweeps_shrink_before_items_share_a_cta():
+    """A launch takes a CTA an item of the longest diagonal for each of
+    its sweeps; past the card's co-resident CTAs the sweeps shrink, and
+    only at one sweep does a CTA take several items of a diagonal."""
+    p = p2.plan(126, sweeps=8)
+    assert p2.launch_grid(p, (128,) * 3, 1056) == (8, 16)
+    assert p2.launch_grid(p, (128,) * 3, 100) == (6, 16)
+    assert p2.launch_grid(p, (128,) * 3, 10) == (1, 10)
+    assert p2.launch_grid(p2.plan(126, sweeps=1), (128,) * 3, 1056) == (1, 16)
+    with pytest.raises(ValueError, match="at least one sweep"):
+        p2.PcrGsSweep(OMEGA, sweeps=0)
+
+
+@pytest.mark.parametrize("maf", [False, True])
+def test_multi_sweep_launcher_refuses_cpu_tensors(maf):
+    """The twin runs one sweep a call: a launcher of several sweeps given
+    CPU tensors raises rather than run one and report it as several."""
+    shape = (10, 9, 11)
+    x, b = _fields(shape, "float32", 8)
+    skew, _, _ = psor_scan.make_skew(shape)
+    S, B = skew(torch.from_numpy(x)), skew(torch.from_numpy(b))
+    mc = czt.Problem.poisson_cube(10, device="cpu", maf=True).mc if maf else None
+    before = S.clone()
+    with pytest.raises(ValueError, match="4 sweeps needs a CUDA tensor"):
+        p2.pcr_gs_diag(S, B, OMEGA, mc, launcher=p2.PcrGsSweep(OMEGA, mc, sweeps=4))
+    assert torch.equal(S, before)
+
+
+def test_cpu_step_runs_one_sweep_a_call():
+    """On the CPU the step is the twin, one sweep a call: iters_per_call 1
+    and its own single, whatever the preconditioner asks."""
+    for divides in (None, 8):
+        step = pcr_gs.make_pcr_gs_diag_step((10, 9, 11), torch.float32, OMEGA,
+                                            device="cpu", divides=divides)
+        assert step.iters_per_call == 1 and step.single is step

@@ -36,6 +36,7 @@ from cubez_tpu.ops import stencil as jstencil
 
 import cubez_tpu_torch as czt
 from cubez_tpu_torch.cuda_kernels import psor as p1
+from cubez_tpu_torch.cuda_kernels import rbpack
 from cubez_tpu_torch.ops import maf as tmaf
 from cubez_tpu_torch.ops import psor_scan, stencil
 from cubez_tpu_torch.parallel import make_mesh
@@ -254,22 +255,32 @@ def test_run_iterative_honours_check_every_default(every, calls):
                                    (70, 140, 150), (512, 512, 512),
                                    (12, 9, 14), (1026, 1026, 1026)])
 def test_plan_covers_every_row_once(shape):
-    """P1's chunks cover the K - 2 inner rows once, none empty; the threads
-    cover every line of the longest diagonal for every chunk; the CTAs stay
-    within the card's co-resident ones (132 on an H100), chunks growing
-    past ROWS rows where they would not (1026^3; 128^3: 63 chunks of 2 rows
-    on 8 CTAs, 313 phases)."""
+    """P1's chunks cover the K - 2 inner rows once, none empty; each
+    sweep's threads cover every line of the longest diagonal for every
+    chunk; the CTAs of all the launch's sweeps stay within the card's
+    co-resident ones (132 SMs of an H100, 1024 threads each), the sweeps
+    shrinking from SWEEPS where they would not (256^3: 8), and only at one
+    sweep the chunks growing past ROWS rows (512^3 holds two sweeps; 1026^3
+    one, in chunks of 8 rows).  128^3: 32 chunks of 4 rows, 32 sweeps of 32
+    CTAs of 128 threads, a CTA a chunk."""
     K, I, J = shape
     p = p1.plan(shape, max_ctas=132)
     n = K - 2
+    cap = 132 * (p1.THREADS // p.threads)
     assert (p.chunks - 1) * p.rows < n <= p.chunks * p.rows
     assert p.lanes % 32 == 0 and p.lanes >= min(I - 2, J - 2)
-    assert p.grid * p1.THREADS >= p.chunks * p.lanes > (p.grid - 1) * p1.THREADS
-    assert p.grid <= 132
-    assert p.rows == min(p1.ROWS, n) or shape == (1026, 1026, 1026)
+    assert p.threads % 32 == 0 and p.grid == p.sweeps * p.per_sweep
+    assert (p.per_sweep * p.threads >= p.chunks * p.lanes
+            > (p.per_sweep - 1) * p.threads)
+    assert p.grid <= cap and 1 <= p.sweeps <= p1.SWEEPS
+    assert p.sweeps == p1.SWEEPS or (p.sweeps + 1) * p.per_sweep > cap
+    assert p.rows == min(p1.ROWS, n) or (p.sweeps == 1 and shape[0] > 1000)
     if shape == (128, 128, 128):
-        assert (p.chunks, p.rows, p.grid) == (63, 2, 8)  # 313 phases
-    assert p1.plan(shape) == p or p.grid == 132 or shape[0] > 1000
+        assert (p.chunks, p.rows, p.sweeps, p.per_sweep, p.threads, p.units) == (
+            32, 4, 32, 32, 128, 1)
+    if shape == (512, 512, 512):
+        assert (p.sweeps, p.rows) == (2, 4)
+    assert p1.plan(shape) == p or p.sweeps < p1.SWEEPS or p.rows > p1.ROWS
 
 
 def test_cpu_wrapper_runs_the_twin_and_counts_nothing():
@@ -285,3 +296,144 @@ def test_cpu_wrapper_runs_the_twin_and_counts_nothing():
         p1.PsorSweep(OMEGA)(S, B)
     with pytest.raises(TypeError):
         psor_scan.make_psor_diag_step((10, 9, 11), torch.float16, OMEGA)
+
+
+# ---- P1's lagged schedule, replayed on the plain point update ----------------
+
+TINY = [(3, 7, 5), (6, 5, 7), (12, 9, 14)]  # (K, I, J)
+
+
+def _point_updates(shape, omega, dtype, tab):
+    """``relax(S, B, d, k0, k1, lines)``: csrc/psor.cu's point update, one
+    rounding an operation, over rows k0 ... k1 (upward) of the lines
+    (i, d - i), i in ``lines``, of diagonal d, in place."""
+    w = None if tab is None else rbpack.table_views(tab, shape)
+    om = torch.tensor(omega, dtype=dtype)
+    two = torch.tensor(2.0, dtype=dtype)
+
+    def relax(S, B, d, k0, k1, i):
+        j = d - i
+        zm, cen = S[d, k0 - 1, i], S[d, k0, i]
+        for k in range(k0, k1 + 1):
+            xm, xp = S[d - 1, k, i - 1], S[d + 1, k, i + 1]
+            ym, yp = S[d - 1, k, i], S[d + 1, k, i]
+            zp, b = S[d, k + 1, i], B[d, k, i]
+            if w is None:
+                quo = (((((xm + xp) + ym) + yp) + zm) + zp - b) / 6
+            else:
+                r = w["wxp"][i] * xp + w["wxm"][i] * xm
+                r = ((r + w["wyp"][j] * yp) + w["wym"][j] * ym)
+                r = (r + w["wzp"][k] * zp) + w["wzm"][k] * zm
+                quo = (r + b) / (two * ((w["c1"][i] + w["c2"][j]) + w["c3"][k]))
+            x = cen + (quo - cen) * om
+            S[d, k, i] = x
+            zm, cen = x, zp
+
+    return relax
+
+
+def _lines_of(shape, d, slots):
+    lo, hi = psor_scan.line_range(d, shape[1], shape[2])
+    return torch.arange(lo, hi + 1)[slots]
+
+
+# (rows a chunk, threads a CTA): one CTA a chunk, or eight of four lines
+# each, as past 1024 lines
+LAYOUTS = {"rows2": (2, None), "rows2_units": (2, 4), "rows1": (1, None)}
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4])
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", TINY)
+def test_lagged_schedule_is_n_serial_sweeps(shape, dtype, maf, sweeps, layout,
+                                            monkeypatch):
+    """P1's launch of n sweeps, replayed task by task on the kernel's
+    point update in place, leaves the field of n serial sweeps of the
+    plain twin bit for bit: the CTAs of ``flag_waits`` run their diagonals
+    in a random order that honours their counters, every task's inputs
+    are done by all their CTAs when it runs, and nothing deadlocks."""
+    tdt = getattr(torch, dtype)
+    x, b = (torch.from_numpy(a) for a in _fields(shape, dtype, 11 + sweeps))
+    skew, _, _ = psor_scan.make_skew(shape)
+    S0, B = skew(x), skew(b)
+    mc = (tmaf.MafCoeffs.from_coords(*(torch.linspace(0, 1, m, dtype=tdt) ** 1.3
+                                       for m in (shape[1], shape[2], shape[0])))
+          if maf else None)
+    ref = S0
+    for _ in range(sweeps):
+        ref, _ = psor_scan.psor_diag_plain(ref, B, OMEGA, mc)
+    rows, threads = LAYOUTS[layout]
+    monkeypatch.setattr(p1, "ROWS", rows)
+    p = p1.plan(shape, sweeps=sweeps)
+    if threads is not None:
+        p = dataclasses.replace(p, threads=threads)
+    assert (p.rows, p.sweeps) == (min(rows, shape[0] - 2), sweeps)
+    relax = _point_updates(shape, OMEGA, tdt, rbpack.maf_tables(mc, shape, tdt))
+    S = S0.clone()
+    rng = np.random.default_rng(sweeps)
+    n = shape[0] - 2
+    d_last = shape[1] + shape[2] - 4
+    U, T = p.units, p.threads
+    assert U == (1 if threads is None else 8)
+    nxt = {(s, c, u): 2 for s in range(sweeps) for c in range(p.chunks)
+           for u in range(U)}
+    count = dict.fromkeys(((s, c) for s in range(sweeps)
+                           for c in range(p.chunks)), 0)
+    done = set()  # (s, d, c, u)
+    while nxt:
+        ready = [k for k in nxt if all(
+            count[key] >= v for key, v in p1.flag_waits(p, shape, k[0], nxt[k], k[1]))]
+        assert ready, "the counters deadlock"
+        s, c, u = key = ready[rng.integers(len(ready))]
+        d = nxt[key]
+        for q in p1.inputs((s, d, c), p, shape):
+            assert all((*q, v) in done for v in range(U))
+        k0 = 1 + c * p.rows
+        relax(S, B, d, k0, min(n, k0 + p.rows - 1),
+              _lines_of(shape, d, slice(u * T, (u + 1) * T)))
+        done.add((s, d, c, u))
+        count[(s, c)] += 1
+        nxt[key] += 1
+        if nxt[key] > d_last:
+            del nxt[key]
+    assert len(done) == sweeps * (d_last - 1) * p.chunks * U
+    assert torch.equal(S, ref)
+
+
+def test_plan_sweeps_shrink_before_chunks_grow():
+    """Past the card's co-resident CTAs the sweeps of a launch shrink, and
+    only at one sweep do the chunks grow; a launcher refuses sweeps its
+    card cannot hold (``sweeps_for`` picks what fits)."""
+    p = p1.plan((128,) * 3, max_ctas=132, sweeps=64)
+    assert p.rows == p1.ROWS and p.grid * p.threads <= 132 * p1.THREADS
+    assert 1 < p.sweeps < 64 and p.per_sweep * p.threads >= p.chunks * p.lanes
+    q = p1.plan((600, 1026, 1026), max_ctas=132, sweeps=4)
+    assert q.sweeps == 1 and q.rows > p1.ROWS and q.chunks * q.lanes <= 132 * p1.THREADS
+    with pytest.raises(ValueError, match="at least one sweep"):
+        p1.PsorSweep(OMEGA, sweeps=0)
+
+
+@pytest.mark.parametrize("maf", [False, True])
+def test_multi_sweep_launcher_refuses_cpu_tensors(maf):
+    """The twin runs one sweep a call: a launcher of several sweeps given
+    CPU tensors raises rather than run one and report it as several."""
+    shape = (10, 9, 11)
+    x, b = _fields(shape, "float32", 6)
+    skew, _, _ = psor_scan.make_skew(shape)
+    S, B = skew(torch.from_numpy(x)), skew(torch.from_numpy(b))
+    mc = czt.Problem.poisson_cube(10, device="cpu", maf=True).mc if maf else None
+    before = S.clone()
+    with pytest.raises(ValueError, match="4 sweeps needs a CUDA tensor"):
+        p1.psor_diag(S, B, OMEGA, mc, launcher=p1.PsorSweep(OMEGA, mc, sweeps=4))
+    assert torch.equal(S, before)
+
+
+def test_cpu_step_runs_one_sweep_a_call():
+    """On the CPU the step is the twin, one sweep a call: iters_per_call 1
+    and its own single, whatever the preconditioner asks."""
+    for divides in (None, 8):
+        step = psor_scan.make_psor_diag_step((10, 9, 11), torch.float32, OMEGA,
+                                             device="cpu", divides=divides)
+        assert step.iters_per_call == 1 and step.single is step
