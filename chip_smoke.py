@@ -126,8 +126,9 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     variant, 'pcr' and 'fastdiag', constant and MAF, colours 0, 1 and the
     line-Jacobi pass, zero and streamed b, on the 64^3 blocks of 128^3 over
     (2, 2, 2) and a (128, 64, 64) block over (1, 2, 2); K9 over all the
-    blocks of each mesh in one launch (pcr_blocks: 'pcr' on the eight,
-    'fastdiag' on the four), every variant; K10 (fused_pcr) in its line
+    blocks of a mesh in one launch (pcr_blocks: 'pcr' on the eight of 128^3
+    and of 512^3 over (2, 2, 2) and on the four of 128^3 over (1, 2, 2),
+    'fastdiag' on those four), every variant; K10 (fused_pcr) in its line
     form at 128^3 in every variant and at 512^3 (colour 1 and line-Jacobi,
     zero b), and in its tile form on a (600, 14, 40) field of lines past
     512 rows; float32 bitwise, float64 within 1e-14;
@@ -146,8 +147,9 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
 18. times the dist line steps per iteration at 128^3 over (2, 2, 2) and
     (1, 2, 2) (with the device time, device launches and busy share an
     iteration) and at 512^3 over (2, 2, 2), K9 per launch over all the
-    blocks of the path's meshes and K10 per colour pass at 128^3 and
-    512^3 (and its pcr_rb step at 128^3), against their twins;
+    blocks of the path's meshes (and its 'pcr' form over the eight blocks
+    of 512^3) and K10 per colour pass at 128^3 and 512^3 (and its pcr_rb
+    step at 128^3), against their twins;
 19. the Krylov solvers (slice 4), each solve with the counts zeroed just
     before and read just after: pbicgstab with sor2sma (omega 1.1) at
     256^3 in float64 (the oracle's 38 +-1, history to rtol 1e-4 before
@@ -213,9 +215,9 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     ratio); profile_solve's 512^3 sweep time an iteration within
     TIMER_RTOL of phase 12's; weak scaling of 128^3 sor2sma blocks, 1 to 8
     on the card, every point on the kernels' route; a 128^3 solve under
-    torch.profiler: its ``sor2sma`` label ranges hold the runtime launches
-    of its K1/K3 kernels, and a solve with no profiler on never enters the
-    label (``steps.labeled.entered``).
+    torch.profiler, in a fresh process: its ``sor2sma`` label ranges hold
+    the runtime launches of its K1/K3 kernels, and a solve with no
+    profiler on never enters the label (``steps.labeled.entered``).
 
 The line before the last is a JSON object with one entry per kernel
 variant (its bound: the larger of the bytes it must move over the card's
@@ -338,13 +340,14 @@ def profile_rows(path):
     return rows
 
 
-def perf_phase(ms_512, tag, env, zero_counts, read_counts):
+def perf_phase(ms_512, tag, env):
     """Phase 22, the perf layer on the card: the CLI's --profile serial and
     over 2 2 2 at 128^3, profile_solve's 512^3 sweep time against phase
     12's (``ms_512`` a sor2sma iteration), the memory model against
     torch's peak, weak scaling of eight blocks on the card, and the solver
     label around a solve's launches under torch.profiler (and never
-    entered without a profiler, by its counter)."""
+    entered without a profiler, by its counter), in a process of its own
+    (``label_window``)."""
     import gc
 
     import torch
@@ -353,7 +356,6 @@ def perf_phase(ms_512, tag, env, zero_counts, read_counts):
     from cubez_tpu_torch.perf import memory as perf_memory
     from cubez_tpu_torch.perf import scaling as perf_scaling
     from cubez_tpu_torch.perf.profile import profile_solve
-    from cubez_tpu_torch.solvers import steps as steps_mod
 
     dev = torch.device("cuda", 0)
     hbm_gbps = HBM_BYTES_S / 1e9
@@ -439,23 +441,55 @@ def perf_phase(ms_512, tag, env, zero_counts, read_counts):
     print(f"weak scaling, 128^3 blocks on one card (the mesh's cost on the "
           f"card, not scaling) {tag}:\n{perf_scaling.report(pts)}", flush=True)
 
-    # the label: its ranges hold the solve's launches under the profiler
+    # the label: its ranges hold the solve's launches under the profiler,
+    # in a process of its own (label_window)
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; chip_smoke.label_window(sys.argv[2])", str(ROOT), tag],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0,
+          f"label window exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+
+
+def label_window(tag):
+    """The solver label around a solve's launches under torch.profiler:
+    every K1/K3 launch of a 128^3 sor2sma solve has its kernel record on
+    the card, linked to its launch call, and the call lies inside a
+    ``sor2sma`` range; a solve with no profiler on never enters the label.
+    perf_phase runs it in a fresh process: late in this script's process
+    the profiler at times recorded 313 or 314 of the 316 kernels (on an
+    H100 80GB HBM3; with the allocator's cache emptied and 77 of 79 GiB
+    free too, and with the window held open 20 ms on both sides), while a
+    fresh process recorded all 316 in 13 captures of 13, and
+    tools/prof_dist.py's K9 rows late in a run at times got no record at
+    all."""
+    import torch
+
+    from cubez_tpu_torch import Problem, solve
+    from cubez_tpu_torch.cuda_kernels import _build
+    from cubez_tpu_torch.cuda_kernels import rbpack as rb
+    from cubez_tpu_torch.solvers import steps as steps_mod
+
+    dev = torch.device("cuda", 0)
+    _build.load()
     p = Problem.poisson_cube(128, device=dev)
     solve(p, "sor2sma", omega=OMEGA, itr_max=30)  # warm
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    zero_counts()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    wrappers = (rb.rb_single, rb.rb_sweeps_n)
+    for w in wrappers:
+        w.launches = w.maf_launches = 0
     with torch.profiler.profile(activities=acts) as prof:
         r = solve(p, "sor2sma", omega=OMEGA, itr_max=10000)
         torch.cuda.synchronize()
-    cnt = read_counts()
-    ours = cnt["rb_sweeps_n"] + cnt["rb_single"]
+    ours = sum(w.launches - w.maf_launches for w in wrappers)
     check(r.iters == 1813, f"profiled solve: {r.iters} iterations")
     # the host's label ranges (the profiler also marks them on the card's
     # timeline), the runtime launch calls, and the K1/K3 kernels on the
     # card, each linked to its launch call by the correlation id
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     evs = prof.events()
     ranges = [(e.time_range.start, e.time_range.end) for e in evs
               if e.name == "sor2sma" and e.device_type == cpu]
@@ -465,12 +499,21 @@ def perf_phase(ms_512, tag, env, zero_counts, read_counts):
     kernels = [e for e in evs if e.device_type == cuda
                and "sweeps_kernel" in e.name]
     linked = [launches[k.id] for k in kernels if k.id in launches]
-    inside = [e for e in linked if any(
-        a <= e.time_range.start and e.time_range.end <= b for a, b in ranges)]
+
+    def within(e):
+        return any(a <= e.time_range.start and e.time_range.end <= b
+                   for a, b in ranges)
+
+    inside = [e for e in linked if within(e)]
+    # launch calls inside the ranges with no record of any kind on the card
+    on_card = {e.id for e in evs if e.device_type == cuda}
+    calls = sorted(launches.values(), key=lambda e: e.time_range.start)
+    unrecorded = [i for i, e in enumerate(calls) if e.id not in on_card and within(e)]
     print(f"labels: {len(ranges)} sor2sma ranges on the host; {len(kernels)} "
           f"K1/K3 kernels on the card, {len(linked)} linked to their launch "
           f"calls, {len(inside)} of those inside the ranges; the wrappers "
-          f"counted {ours} launches {tag}", flush=True)
+          f"counted {ours} launches; launch calls inside the ranges with no "
+          f"record on the card: {unrecorded} of {len(calls)} {tag}", flush=True)
     check(ours > 0 and len(kernels) == ours,
           f"profiled solve: {len(kernels)} K1/K3 kernels, {ours} launches counted")
     check(len(inside) == len(linked) == ours,
@@ -480,6 +523,8 @@ def perf_phase(ms_512, tag, env, zero_counts, read_counts):
     r = solve(p, "sor2sma", omega=OMEGA, itr_max=10000)
     check(r.iters == 1813 and steps_mod.labeled.entered == before,
           "a solve with no profiler on entered the label")
+
+
 
 
 def card_line():
@@ -2041,10 +2086,11 @@ def main():
                                       f"residual differs by rtol {rel}: {where}")
                                 n_cmp += 1
     # K9 over all the blocks of a mesh in one launch against the batched
-    # twin: the 'pcr' form on the eight blocks of (2, 2, 2), the 'fastdiag'
-    # form on the four of (1, 2, 2)
-    for div, form in (((2, 2, 2), "pcr"), ((1, 2, 2), "fastdiag")):
-        gsz = (128, 128, 128)
+    # twin: the 'pcr' form on the eight blocks of (2, 2, 2) at 128^3 and at
+    # 512^3 (lines of 258 rows), both forms on the four of (1, 2, 2)
+    for gn, div, form in ((128, (2, 2, 2), "pcr"), (128, (1, 2, 2), "pcr"),
+                          (128, (1, 2, 2), "fastdiag"), (512, (2, 2, 2), "pcr")):
+        gsz = (gn,) * 3
         cmk = make_mesh(gsz, devices=[dev] * (div[0] * div[1] * div[2]), div=div)
         bsz, orgs = cmk.block_shape(gsz), cmk.offsets(gsz)
         for dtype in (f32, f64):
@@ -2072,13 +2118,18 @@ def main():
                         e = max(float((g - w).abs().max()) for g, w in zip(got, want))
                         err[name] = max(err.get(name, 0.0), e)
                         rel = float((r_k - sum(r_p)).abs() / sum(r_p))
-                        where = (f"K9 {len(orgs)} blocks {form} maf={maf} "
-                                 f"colour={colour} b={bb is not None} {dtype}")
+                        where = (f"K9 {len(orgs)} blocks of {gn}^3 {form} "
+                                 f"maf={maf} colour={colour} b={bb is not None} "
+                                 f"{dtype}")
                         check(all(bool(torch.isfinite(g).all()) for g in got),
                               f"non-finite field: {where}")
                         check(e <= tol, f"field differs by {e}: {where}")
                         check(rel <= 1e-5, f"residual differs by rtol {rel}: {where}")
                         n_cmp += 1
+                print(f"K9 {form} maf={maf} {len(orgs)} blocks of {gn}^3 {dtype}: "
+                      f"{k9.plan(form, bsz, dtype, maf, 0)} (colours), "
+                      f"{k9.plan(form, bsz, dtype, maf, None)} (line-Jacobi)",
+                      flush=True)
         del cmk, xs, bbs, got, want
     # K10: its line form at 128^3 and 512^3 (every variant at 128^3; at
     # 512^3 colour 1 and the line-Jacobi pass), and the tile form its plan
@@ -2269,11 +2320,10 @@ def main():
             if maf:
                 tabs = [k9.block_maf_tables(mc, o, bsz, gsz, f32, form).to(dev)
                         for o in orgs]
-            scr = [k9.make_scratch(x.shape, f32, dev, form, 0, maf) for x in xb]
 
-            def call(plain, xb=xb, tabs=tabs, scr=scr, orgs=orgs, form=form):
+            def call(plain, xb=xb, tabs=tabs, orgs=orgs, form=form, gsz=gsz):
                 # one launcher, as a step keeps it: its arguments built once
-                launch = k9.BlockPcr(form, 0, OMEGA, orgs, gsz, 0, tabs, scr)
+                launch = k9.BlockPcr(form, 0, OMEGA, orgs, gsz, 0, tabs)
 
                 def run():
                     res9.start()
@@ -2332,25 +2382,55 @@ def main():
               f"ms, plain twin {per_call_512[name][1]:.4f} ms; pcr_rb step at "
               f"128^3 {k10_extra[name]['step_ms']:.4f} ms {tag}", flush=True)
     check(bool(torch.isfinite(x5).all()), "K10 512^3 timing field not finite")
-    del x5, mc5, tab5
+    del x5, tab5
+    # K9 'pcr' per launch over the eight 256^3 blocks of 512^3 (lines of 258
+    # rows), colour 0, kernel against twin in turns
+    cm5 = make_mesh((512,) * 3, devices=[dev] * 8, div=(2, 2, 2))
+    bsz5, orgs5 = cm5.block_shape((512,) * 3), cm5.offsets((512,) * 3)
+    xb5 = [rand(tuple(v + 2 for v in bsz5), f32).to(dev) for _ in orgs5]
+    for maf in (False, True):
+        tabs5 = None
+        if maf:
+            tabs5 = [k9.block_maf_tables(mc5, o, bsz5, (512,) * 3, f32, "pcr").to(dev)
+                     for o in orgs5]
+        launch = k9.BlockPcr("pcr", 0, OMEGA, orgs5, (512,) * 3, 0, tabs5)
+
+        def run(plain, launch=launch):
+            res9.start()
+            launch(xb5, None, None, res9, plain)
+            return res9.total()
+        name = k9.variant("pcr", maf)
+        run(False), run(True)
+        sync()
+        p1 = events_ms(lambda: run(True), 1)
+        k1 = events_ms(lambda: run(False), 10)
+        k2 = events_ms(lambda: run(False), 10)
+        p2 = events_ms(lambda: run(True), 1)
+        per_call_512[name] = (min(k1, k2), min(p1, p2))
+        print(f"per call at 512^3 f32 colour 0 (the eight blocks of (2, 2, 2), one "
+              f"launch): {name} {per_call_512[name][0]:.4f} ms, plain twin "
+              f"{per_call_512[name][1]:.4f} ms {tag}", flush=True)
+    check(all(bool(torch.isfinite(x).all()) for x in xb5),
+          "K9 512^3 timing blocks not finite")
+    del xb5, cm5, mc5, tabs5
     # their least work, colour 0 (half the lines) with b zero, over the rows
     # a pass updates (every inner point of 128^3 sits in one block's line,
     # so half of 126^3 rows on either mesh):
     # bytes, the blocks read once and the updated cells written once;
     # operations, those of the CUDA bodies per updated row: the system (4
     # constant, 15 MAF), each PCR stage (16 variable, pcr.cuh's
-    # pcr_solve_var; 5 on K10's tables, pcr_solve_tab), the final pair (6
-    # variable, 3 tables) and the relaxation with its dp^2 (5); K10's end
-    # folds add 4 a line; a Thomas line relaxation 14 (24 under MAF) a row,
-    # as K5/K6
+    # pcr_solve_var: K9 MAF; 5 on tables, pcr_solve_tab: K9 constant on its
+    # wall pattern's, K10), the final pair (6 variable, 3 tables) and the
+    # relaxation with its dp^2 (5); K10's end folds add 4 a line; a Thomas
+    # line relaxation 14 (24 under MAF) a row, as K5/K6
     pn9, pn10 = num_stage(64 + 2), num_stage(126)
     blk, rows9 = 8 * 66**3, 126**3 / 2
     fd_blk, fd_rows = 4 * 130 * 66 * 66, 126**3 / 2
     lines10 = 126 * 126 / 2
-    var9 = 16 * (pn9 - 1) + 6 + 5
+    var9, tab9 = 16 * (pn9 - 1) + 6 + 5, 5 * (pn9 - 1) + 3 + 5
     var10, tab10_ops = 16 * (pn10 - 1) + 6 + 5, 5 * (pn10 - 1) + 3 + 5
     work.update({
-        "block_pcr": (4 * (blk + rows9), (4 + var9) * rows9),
+        "block_pcr": (4 * (blk + rows9), (4 + tab9) * rows9),
         "block_pcr_maf": (4 * (blk + rows9), (15 + var9) * rows9),
         "block_pcr_fastdiag": (4 * (fd_blk + fd_rows), 14 * fd_rows),
         "block_pcr_fastdiag_maf": (4 * (fd_blk + fd_rows), 24 * fd_rows),
@@ -2359,9 +2439,12 @@ def main():
         "fused_pcr_maf": (4 * (128**3 + inner / 2),
                           (15 + var10) * inner / 2 + 4 * lines10),
     })
-    pn5 = num_stage(510)
+    pn5, pn95 = num_stage(510), num_stage(256 + 2)
     var5, tab5_ops = 16 * (pn5 - 1) + 6 + 5, 5 * (pn5 - 1) + 3 + 5
+    blk5, rows95 = 8 * 258**3, inner5 / 2
     work512.update({
+        "block_pcr": (4 * (blk5 + rows95), (4 + 5 * (pn95 - 1) + 3 + 5) * rows95),
+        "block_pcr_maf": (4 * (blk5 + rows95), (15 + 16 * (pn95 - 1) + 6 + 5) * rows95),
         "fused_pcr": (4 * (512**3 + inner5 / 2),
                       (4 + tab5_ops) * inner5 / 2 + 4 * 510 * 510 / 2),
         "fused_pcr_maf": (4 * (512**3 + inner5 / 2),
@@ -3106,8 +3189,7 @@ def main():
     # ---- 22. the perf layer (slice 8) ------------------------------------------
     stamp(22)
     t22 = time.perf_counter()
-    perf_phase(timing[("sor2sma", "kernel", 512)], tag, env, zero_counts,
-               read_counts)
+    perf_phase(timing[("sor2sma", "kernel", 512)], tag, env)
     print(f"phase 22: {time.perf_counter() - t22:.1f} s", flush=True)
 
     rbpack_cu = "cubez_tpu_torch/csrc/rbpack.cu"

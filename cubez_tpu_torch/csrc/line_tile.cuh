@@ -1,18 +1,48 @@
-// The shared-memory line tile of the line kernels K5 (rblines.cu) and K6
-// (lines.cu): the same Thomas arithmetic as lines.cuh's relax_line, which
-// K9 'fastdiag' (dist_pcr.cu) keeps, laid out for an H100.
+// The shared-memory line tile of the line kernels K5 (rblines.cu), K6
+// (lines.cu) and K9's 'fastdiag' form (dist_pcr.cu): Thomas line
+// relaxation laid out for an H100.
 //
-// Why a tile.  relax_line walks a line's k values in one thread, loading
-// the neighbours and b from global memory at every step and writing the
-// forward values to a global scratch that the backward pass reads again.
-// Each step then waits out an L2 round trip (214 ns a step for K5 at
-// 128^3, H100 80GB HBM3), and at 512^3 the scratch is 40% of the bytes.
-// Here a CTA takes L lines of one colour, consecutive along j, whole, and
-// keeps their right-hand sides in shared memory:
+// A line is the column of the K values at one (i, j).  Relaxing an inner
+// line solves its K-tridiagonal system for the n = K - 2 inner values,
+// with the Dirichlet values x[0] and x[K-1] folded into the ends, and
+// moves the line by omega towards the solution.  The systems are strictly
+// diagonally dominant (constant: diagonal 1, off-diagonals -1/6; MAF:
+// 2 c3_k + lambda_ij against wzm_k + wzp_k, lambda_ij = 2 (c1_i + c2_j) >
+// 0), so Thomas needs no pivoting and is stable in float32.
+//
+// Arithmetic contract (cuda_kernels/lines.py states it once more for the
+// plain twins): every operation is one explicit round-to-nearest
+// intrinsic and the sources are built with --fmad=false, so there is no
+// fused multiply-add anywhere and a float32 line is bitwise the twin's.
+//
+// constant coefficients, R6 = 1/6 rounded to T, tables Q_k = 1/m_k and
+// E_k = (1/6)/m_k of the Thomas factors m_1 = 1, m_k = 1 - E_{k-1}/6
+// (computed on the host in float64, E_{K-2} = 0, then rounded to T):
+//   d   = (((x[i+1] + x[i-1]) + x[j+1]) + x[j-1] - b) * R6
+//   d  += x[k=0] * R6 at k = 1;  d += x[k=K-1] * R6 at k = K-2
+//   g_k = (d + R6 * g_{k-1}) * Q_k                    (g_0 = 0)
+//   s_k = g_k + E_k * s_{k+1}                          (s_{K-1} = 0)
+// MAF, the weights of MafTables (common.cuh):
+//   d   = ((wxp_i x[i+1] + wxm_i x[i-1]) + wyp_j x[j+1]) + wym_j x[j-1] - b
+//   d  += wzm_1 x[k=0] at k = 1;  d += wzp_{K-2} x[k=K-1] at k = K-2
+//   m_k = 2 ((c1_i + c2_j) + c3_k) - wzm_k e_{k-1}     (e_0 = 0)
+//   q_k = 1 / m_k;  e_k = wzp_k q_k;  g_k = (d + wzm_k g_{k-1}) q_k
+//   s_k = g_k + e_k s_{k+1}
+// then for each inner k: dp = (s_k - x) * omega, x += dp.
+// The MAF diagonal 2 ((c1 + c2) + c3) is the point sweeps' dd: a line
+// solver and a point sweep see the same operator.
+//
+// Why a tile.  One thread walking a line's k values, loading the
+// neighbours and b from global memory at every step and writing the
+// forward values to a global scratch that the backward pass reads again,
+// waits out an L2 round trip a step (214 ns a step for K5 at 128^3, H100
+// 80GB HBM3), and at 512^3 the scratch is 40% of the bytes.  Here a CTA
+// takes L lines of one colour, consecutive along j, whole, and keeps their
+// right-hand sides in shared memory:
 //
 //   A (all threads)  d[k][l] for every inner (k, l) of the tile: the four
 //                    neighbours, b, the scaling and the Dirichlet folds, in
-//                    relax_line's order; every load independent, in
+//                    the contract's order; every load independent, in
 //                    batches; the k tables, copied to shared memory;
 //   B (a thread a line)  the forward recurrence out of shared memory, g
 //                    over d in place (each d is read before it is
@@ -28,17 +58,12 @@
 // division more), the next chunk of steps' loads in flight while a chunk's
 // chain runs.  A thread keeps one lane l = t % L in phases A and D
 // (blockDim.x is a multiple of L), so its line's position is computed
-// once.
-//
-// Arithmetic contract: every operation is relax_line's (lines.cuh states
-// it, cuda_kernels/lines.py repeats it for the plain twins), in the same
-// order, through the same _rn intrinsics, under --fmad=false: a float32
-// line is bitwise the twin's.  Only the residual's sum runs in another
-// order (per thread over its k values, then over the CTA).
+// once.  Only the residual's sum runs in another order than the twins'
+// (per thread over its k values, then over the CTA).
 //
 // Aliasing.  ``nb`` (const __restrict__, read through the read-only path)
 // holds the neighbours and the lines' two Dirichlet values.  Within one
-// launch nothing writes them: a colour pass (K5, K6's red-black form)
+// launch nothing writes them: a colour pass (K5, K6's red-black form, K9)
 // updates only the inner values of its own colour's lines, whose
 // neighbours are all of the other colour, and the line-Jacobi pass writes
 // ``out``, never the field it reads.  So an update in place may pass the
@@ -89,7 +114,7 @@ struct TileArgs {
   const T* __restrict__ nb;  // neighbours, Dirichlet values (and x for kOut)
   T* xw;                     // the relaxed field (x in place, or out)
   const T* __restrict__ b;   // right-hand side, nullptr for zero
-  const T* __restrict__ lt;  // MafTables, or Q then E (lines.cuh)
+  const T* __restrict__ lt;  // MafTables, or Q then E (the contract above)
   T* partials;               // one per tile
   unsigned ks;               // stride along k
   int K, I, J;               // I, J physical, for the MAF tables
@@ -154,7 +179,7 @@ struct BackwardChunk {
   }
 };
 
-// One forward step of relax_line: g_k from d_k and g_{k-1} (``gp``), and
+// One forward step of the Thomas recurrence: g_k from d_k and g_{k-1} (``gp``), and
 // for MAF e_k from e_{k-1} (``ep``); ``q_or_c3`` is Q_k, or MAF's c3_k.
 template <typename T, bool kMaf>
 __device__ __forceinline__ void forward_step(T d, T q_or_c3, T wzm, T wzp, T s12, T& gp,

@@ -35,14 +35,12 @@
 //
 // Residuals: each tile folds its sum of dp^2 in a fixed order into
 // partials[tile] (T); no atomics.  The host folds the partials in float64.
-//
-// lines.cuh's kLineThreads stays exported (cz_line_threads_per_block) for
-// K9's wrapper, whose 'fastdiag' form still runs relax_line.
+// K9's 'fastdiag' form (dist_pcr.cu) runs the same tile on its ghosted
+// blocks.
 
 #include <cuda_runtime.h>
 
 #include "line_tile.cuh"
-#include "lines.cuh"
 
 namespace {
 
@@ -131,8 +129,6 @@ int launch_rb_color(void* x, const void* b, const void* lt, void* partials, int 
 }  // namespace
 
 extern "C" {
-
-int cz_line_threads_per_block(void) { return kLineThreads; }
 
 int cz_line_j_f32(const void* x, const void* b, const void* lt, void* out, void* partials,
                   int K, int I, int J, double omega, int maf, int lines, int threads,

@@ -28,7 +28,10 @@
 //          k >= s: x = (d[k] - a[k] d[k-s]) * (1 / (1 - a[k] c[k-s]))
 //   tables (pcr_solve_tab), stage p: d' = e_p ((d - ap_p d[k-s]) - cp_p d[k+s]),
 //   final: x = (d - c_lo d[k+s]) jj (k < s), (d - a_hi[k-s] d[k-s]) jj[k-s]
-//   (k >= s), the tables of cuda_kernels/pcr.py::build_tables.
+//   (k >= s), the tables of cuda_kernels/pcr.py::build_tables (K10, evolved
+//   in float64), or of cuda_kernels/dist_pcr.py::pattern_table (K9, evolved
+//   by the variable stage's own operations in the field's type, so that a
+//   line is bitwise pcr_solve_var's).
 
 #pragma once
 

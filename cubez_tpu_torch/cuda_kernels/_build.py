@@ -64,8 +64,6 @@ def _declare(lib):
     lib.cz_threads_per_block.restype = i32
     lib.cz_error_string.argtypes = [i32]
     lib.cz_error_string.restype = ctypes.c_char_p
-    lib.cz_line_threads_per_block.argtypes = []
-    lib.cz_line_threads_per_block.restype = i32
     lib.cz_pcr_threads_per_block.argtypes = []
     lib.cz_pcr_threads_per_block.restype = i32
     lib.cz_dist_max_blocks.argtypes = []

@@ -22,14 +22,22 @@ indices.
   fold (cz_solver.f90:578-579), so one program serves boundary and
   interior blocks.  The other rows carry the stencil equation, constant
   (a = c = -1/6) or MAF (normalised by dw = 0.5 / ((c1 + c2) + c3)).  The
-  system is data-dependent, so it runs the variable-coefficient PCR stages
-  (``pcr.pcr_solve_var``, num_stage(lk + 2) of them);
+  twin runs the variable-coefficient PCR stages (``pcr.pcr_solve_var``,
+  num_stage(lk + 2) of them) on every column.  The kernel does so under
+  MAF; with constant coefficients every line of a block has the same a and
+  c (which of its end rows lie on a K wall is the block's), so it solves
+  the d chain alone (``pcr.pcr_solve``'s operations) on the stage tables of
+  the block's wall pattern, ``pattern_table``, evolved by the variable
+  stage's own operations in the field's type: bitwise the twin;
 * ``'fastdiag'`` (K-unsplit meshes, lk == K): every line spans the full K
   extent, so the serial line relaxation applies per block unchanged.  The
   TPU kernel solves it with dense eigen/inverse tables on the MXU; the
   port solves the same system by Thomas, ``lines.relax_dp`` and
-  csrc/lines.cuh's ``relax_line``, as K5 and K6 do.  The name stays so
-  that a reader finds the counterpart.
+  csrc/line_tile.cuh's shared-memory tile, as K5 and K6 do.  The name
+  stays so that a reader finds the counterpart.
+
+``plan`` gives a launch's geometry: the lines a CTA, its shared memory
+and its CTAs a block, one partial sum of dp^2 each.
 
 ``color`` 0/1 relaxes that colour's lines in place; None relaxes every line
 from the pre-pass block, out of place (the line-Jacobi pass: the result is
@@ -52,6 +60,7 @@ algorithm than the TPU's dense solve, within 5e-6.
 
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import numpy as np
@@ -60,8 +69,9 @@ import torch
 from ..ops.maf import FIELDS
 from ..ops.pcr import num_stage
 from . import _build
-from .lines import relax_dp, thomas_tables
-from .pcr import pcr_solve_var, tile_lines
+from .lines import (SMEM_CTA, SMEM_RESERVED, SMEM_SM, TILE_MAX_THREADS, line_tile,
+                    relax_dp, thomas_tables, tile_count)
+from .pcr import pcr_solve_var, tile_lines, var_tables
 from .dist_halo import (Launches, Prepared, Residual, check_blocks, chunks,
                          current_stream, int_array, pointer_array)
 from .rbpack import _NP, _R6, _SUFFIX, check_tab, maf_tables, ptr, table_views
@@ -135,10 +145,8 @@ def _pcr_dp(x, b, omega, geom, tab):
     k0, i0, j0, Kg, Ig, Jg, _ = geom
     dev, dt = x.device, x.dtype
     n = lk + 2
-    k = torch.arange(n, device=dev)
-    gk = k - 1 + k0
-    rows = (k >= 1) & (k <= lk) & (gk >= 1) & (gk <= Kg - 2)
-    m = rows[:, None, None] & _line_ok((lk, li, lj), geom, dev)[None]
+    m = (stencil_rows(k0, lk, Kg, dev)[:, None, None]
+         & _line_ok((lk, li, lj), geom, dev)[None])
     xl = x[:, 1:-1, 1:-1]
     xip, xim = x[:, 2:, 1:-1], x[:, :-2, 1:-1]
     xjp, xjm = x[:, 1:-1, 2:], x[:, 1:-1, :-2]
@@ -216,15 +224,111 @@ def pcr_blocks_plain(xs, bs, form: str, color, omega: float, origins, gshape,
     return [r[0] for r in res], [r[1] for r in res]
 
 
-def make_scratch(shape, dtype, device, form: str, color, maf: bool):
-    """The Thomas scratch of one 'fastdiag' block of ghosted ``shape``:
-    the forward values g (colour passes; the line-Jacobi pass keeps them in
-    its output) and, under MAF, the factors e.  None for the 'pcr'
-    form."""
-    if form != "fastdiag":
-        return None
-    return [torch.empty(shape, dtype=dtype, device=device)
-            for _ in range((color is not None) + maf)]
+# csrc/pcr.cuh's kPcrThreads: the threads of a 'pcr' CTA ('fastdiag'
+# tiles take line_tile.cuh's kTileMaxThreads)
+PCR_THREADS = 256
+# the constant 'pcr' form takes the most lines a CTA (32 at most) whose two
+# buffers of d leave room for this many CTAs an SM, a full SM's threads:
+# 32 lines of 66 rows, 8 of 258 in float32, the fastest of those measured
+# (tools/prof_dist.py --k9 --lines 8 16, H100 80GB HBM3: 128^3 over
+# (2, 2, 2) colour 0, L = 32, 16, 8: 21.35, 22.75, 27.49 device us a
+# launch; 512^3, L = 8, 16: 1247, 1448)
+TAB_CTAS_PER_SM = 8
+# the 'pcr' kernels' static shared memory (block_sum's warp sums, float64)
+_PCR_STATIC = 8 * PCR_THREADS // 32
+_ITEM = {torch.float32: 4, torch.float64: 8}
+
+
+@dataclasses.dataclass(frozen=True)
+class K9Plan:
+    """A K9 launch's geometry on one block: ``solve`` 'tab' (constant
+    'pcr': pcr.cuh's pcr_solve_tab on ``pattern_table``), 'var' (MAF 'pcr':
+    pcr_solve_var) or 'tile' ('fastdiag': line_tile.cuh); ``lines`` a
+    CTA, ``threads``, ``smem`` its dynamic shared memory in bytes, and
+    ``gx`` by ``gy`` CTAs a block ('pcr': CTAs along a row by rows;
+    'fastdiag': every tile of the block along x), one partial sum of dp^2
+    each."""
+
+    solve: str
+    lines: int
+    threads: int
+    smem: int
+    gx: int
+    gy: int
+
+    @property
+    def ctas(self) -> int:
+        return self.gx * self.gy
+
+
+def tab_lines(n: int, dtype) -> int:
+    """Lines a CTA of the constant 'pcr' form takes for lines of ``n``
+    rows: the largest of 32, 16, ..., 1 whose two buffers of d (2 n L
+    values) leave room for ``TAB_CTAS_PER_SM`` CTAs an SM, else the largest
+    that fits one CTA.  Raises where no line fits."""
+    def need(L):
+        return 2 * n * L * _ITEM[dtype] + _PCR_STATIC
+
+    cands = (32, 16, 8, 4, 2, 1)
+    for L in cands:
+        if TAB_CTAS_PER_SM * (need(L) + SMEM_RESERVED) <= SMEM_SM:
+            return L
+    for L in cands:
+        if need(L) <= SMEM_CTA:
+            return L
+    raise ValueError(f"a line of {n} rows does not fit K9's shared memory")
+
+
+def plan(form: str, block_shape, dtype, maf: bool, color) -> K9Plan:
+    """The geometry of a K9 launch of ``form`` on blocks of owned
+    ``block_shape`` (lk, li, lj): a colour pass (``color`` 0/1, the li rows
+    of ceil(lj / 2) lines of the colour) or the line-Jacobi pass (None,
+    every column of the ghosted block).  'fastdiag' takes
+    ``lines.line_tile``'s tile for lines of lk values (raising past the
+    longest that fits), MAF 'pcr' ``pcr.tile_lines``, constant 'pcr'
+    ``tab_lines``."""
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, not {form!r}")
+    lk, li, lj = block_shape
+    rows, lanes = (li + 2, lj + 2) if color is None else (li, (lj + 1) // 2)
+    if form == "fastdiag":
+        L, smem = line_tile(lk, dtype, maf)
+        return K9Plan("tile", L, TILE_MAX_THREADS, smem, tile_count(rows, lanes, L), 1)
+    n = lk + 2
+    if maf:
+        L = tile_lines(n, dtype, True)
+        return K9Plan("var", L, PCR_THREADS, 6 * n * L * _ITEM[dtype], -(-lanes // L),
+                      rows)
+    L = tab_lines(n, dtype)
+    return K9Plan("tab", L, PCR_THREADS, 2 * n * L * _ITEM[dtype], -(-lanes // L), rows)
+
+
+def stencil_rows(k0: int, lk: int, Kg: int, device=None):
+    """(lk + 2,) True at the rows of a 'pcr' line of the block at global
+    k0 that carry the stencil equation: owned and globally inner."""
+    k = torch.arange(lk + 2, device=device)
+    gk = k - 1 + k0
+    return (k >= 1) & (k <= lk) & (gk >= 1) & (gk <= Kg - 2)
+
+
+_PATTERNS: dict = {}
+
+
+def pattern_table(k0: int, lk: int, Kg: int, dtype, device) -> torch.Tensor:
+    """The stage tables (pcr.cuh's pcr_solve_tab layout, ((pn - 1) 3 + 3,
+    n) values) of the constant 'pcr' lines of the block at global k0: a =
+    c = -R6 on the ``stencil_rows``, 0 on the rest, the coefficients every
+    line of the block has in the twin, evolved by ``pcr.var_tables`` in
+    ``dtype`` on ``device``.  A block's wall pattern (bottom wall, top
+    wall, both, neither) sets them, so a mesh has at most four, each built
+    once."""
+    rows = stencil_rows(k0, lk, Kg)
+    key = (tuple(rows.tolist()), dtype, torch.device(device))
+    if key not in _PATTERNS:
+        r6 = torch.tensor(_R6[dtype], dtype=dtype)
+        a = torch.where(rows, -r6, torch.zeros((), dtype=dtype)).to(device)
+        _PATTERNS[key] = var_tables(a, a, num_stage(lk + 2))
+    return _PATTERNS[key]
 
 
 _THOMAS: dict = {}
@@ -242,25 +346,24 @@ class BlockPcr:
     MAX_BLOCKS), one pass: ``form`` 'pcr' or 'fastdiag', ``color`` 0/1 (in
     place) or None (out of place into ``outs``, new blocks when None);
     ``origins`` their global (k0, i0, j0), ``gshape`` the global shape;
-    ``tabs`` (each block's ``block_maf_tables`` of the form) selects MAF;
-    ``scratch`` the 'fastdiag' form's Thomas scratch, one ``make_scratch``
-    per block (made at the first call when None).  ``__call__(xs,
-    bs=None, outs=None, res=None, plain=False)``: ``bs`` the right-hand
-    sides (None, or None entries, for zero); the per-CTA partial sums of
-    dp^2 go to ``res`` (a dist_halo.Residual).  Returns the updated
-    blocks.  CPU blocks (any blocks with ``plain``) run the twin and hand
-    ``res`` their per-block sums.  The launch arguments are built once
-    for each set of block pointers (dist_halo.Launches)."""
+    ``tabs`` (each block's ``block_maf_tables`` of the form) selects MAF.
+    ``__call__(xs, bs=None, outs=None, res=None, plain=False)``: ``bs``
+    the right-hand sides (None, or None entries, for zero); the per-CTA
+    partial sums of dp^2 go to ``res`` (a dist_halo.Residual).  Returns
+    the updated blocks.  CPU blocks (any blocks with ``plain``) run the
+    twin and hand ``res`` their per-block sums.  The launch arguments (and
+    the constant 'pcr' form's ``pattern_table``s) are built once for each
+    set of block pointers (dist_halo.Launches)."""
 
     def __init__(self, form: str, color, omega: float, origins, gshape,
-                 offset: int = 0, tabs=None, scratch=None):
+                 offset: int = 0, tabs=None):
         if form not in FORMS:
             raise ValueError(f"form must be one of {FORMS}, not {form!r}")
         if color not in (None, 0, 1):
             raise ValueError(f"color must be None, 0 or 1, not {color!r}")
         self.form, self.color, self.omega = form, color, omega
         self.origins, self.gshape = [tuple(o) for o in origins], tuple(gshape)
-        self.offset, self.tabs, self.scratch = offset, tabs, scratch
+        self.offset, self.tabs = offset, tabs
         self.variant = variant(form, tabs is not None)
         self._launches = Launches(self._prepare)
 
@@ -283,47 +386,31 @@ class BlockPcr:
         if form == "fastdiag" and (lk != self.gshape[0] or lk - 2 < 2):
             raise ValueError(f"'fastdiag' needs the block to span K (lk {lk}, K "
                              f"{self.gshape[0]}) with two inner rows")
-        tabs = self.tabs or [None] * n
         for t in self.tabs or ():
             check_tab(x0, t, ((lk + 2) if form == "pcr" else lk, li + 2, lj + 2))
-        lib = _build.load()
-        lt = None
-        if form == "pcr":
-            L = tile_lines(lk + 2, x0.dtype, True)
-            gx = -(-((lj + 2) if color is None else (lj + 1) // 2) // L)
-            gy = li + 2 if color is None else li
-            scratch = [None] * n
-        else:
-            L, gy = 0, 1
-            cols = (li + 2) * (lj + 2) if color is None else li * ((lj + 1) // 2)
-            gx = -(-cols // lib.cz_line_threads_per_block())
-            lt = None if maf else _thomas(lk, x0.dtype, x0.device)
-            if self.scratch is None:
-                self.scratch = [make_scratch(x0.shape, x0.dtype, x0.device, form,
-                                             color, maf) for _ in xs]
-            scratch = self.scratch
-            for scr in scratch:
-                if len(scr) != (color is not None) + maf:
-                    raise ValueError("scratch must be make_scratch's blocks")
-                check_blocks("block_pcr scratch", xs[:1], scr)
+        pl = plan(form, (lk, li, lj), x0.dtype, maf, color)
+        tabs, lt = self.tabs, None
+        if pl.solve == "tab":
+            tabs = [pattern_table(o[0], lk, self.gshape[0], x0.dtype, x0.device)
+                    for o in self.origins]
+        elif pl.solve == "tile" and not maf:
+            lt = _thomas(lk, x0.dtype, x0.device)
+        tabs = tabs or [None] * n
         bs = bs or [None] * n
         outs = outs or xs
         calls = []
         for lo, hi in chunks(n):
             vals = []
-            ints = [hi - lo, FORMS.index(form), -1 if color is None else color, L,
-                    num_stage(lk + 2), int(maf), gx, gy, x0.get_device(), lk, li,
-                    lj, *self.gshape, self.offset]
+            ints = [hi - lo, FORMS.index(form), -1 if color is None else color,
+                    pl.lines, num_stage(lk + 2), int(maf), pl.gx, pl.gy,
+                    x0.get_device(), lk, li, lj, *self.gshape, self.offset]
             for i in range(lo, hi):
-                scr = scratch[i] or ()
-                gs = scr[0] if color is not None and scr else None
-                es = scr[-1] if maf and scr else None
                 vals += [xs[i].data_ptr(), ptr(bs[i]), ptr(tabs[i]),
-                         outs[i].data_ptr(), ptr(gs), ptr(es)]
+                         outs[i].data_ptr()]
                 ints += self.origins[i]
             vals.append(ptr(lt))
-            calls.append((pointer_array(vals), int_array(ints), gx * gy * (hi - lo)))
-        fn = getattr(lib, f"cz_block_pcr_{_SUFFIX[x0.dtype]}")
+            calls.append((pointer_array(vals), int_array(ints), pl.ctas * (hi - lo)))
+        fn = getattr(_build.load(), f"cz_block_pcr_{_SUFFIX[x0.dtype]}")
         return Prepared(x0, fn, calls)
 
     def __call__(self, xs, bs=None, outs=None, res=None, plain: bool = False):
@@ -349,29 +436,26 @@ class BlockPcr:
 
 
 def pcr_blocks(xs, bs, form: str, color, omega: float, origins, gshape,
-               offset: int = 0, tabs=None, outs=None, scratch=None, res=None,
+               offset: int = 0, tabs=None, outs=None, res=None,
                plain: bool = False):
     """Launch K9 once over the ghosted blocks ``xs`` of one card: a
     ``BlockPcr`` built for this call (see it for the arguments)."""
-    return BlockPcr(form, color, omega, origins, gshape, offset, tabs, scratch)(
+    return BlockPcr(form, color, omega, origins, gshape, offset, tabs)(
         xs, bs, outs, res, plain)
 
 
-def block_pcr(x, b, form: str, color, omega: float, geom, tab=None, out=None,
-              scratch=None):
+def block_pcr(x, b, form: str, color, omega: float, geom, tab=None, out=None):
     """K9 on the one ghosted block ``x``: ``pcr_blocks`` with one block.
     ``geom`` = (k0, i0, j0, Kg, Ig, Jg, offset); ``tab`` its
-    ``block_maf_tables`` (MAF); ``scratch`` its ``make_scratch`` (made when
-    None).  Returns (block, float64 sum of dp^2 on the device).  A CPU
-    tensor runs the plain twin.  ``block_pcr.launches`` counts the launches
-    of ``pcr_blocks``, in all and by ``variant``."""
+    ``block_maf_tables`` (MAF).  Returns (block, float64 sum of dp^2 on the
+    device).  A CPU tensor runs the plain twin.  ``block_pcr.launches``
+    counts the launches of ``pcr_blocks``, in all and by ``variant``."""
     if not x.is_cuda:
         return block_pcr_plain(x, b, form, color, omega, geom, tab, out)
     res = Residual(x.device)
     outs = pcr_blocks([x], [b], form, color, omega, [geom[:3]], geom[3:6],
                       geom[6], None if tab is None else [tab],
-                      None if out is None else [out],
-                      None if scratch is None else [scratch], res)
+                      None if out is None else [out], res)
     return outs[0], res.total()
 
 
@@ -398,8 +482,7 @@ def make_block_pcr(block_shape, gshape, dtype=torch.float32, *, omega: float,
     shard_map body).  ``solver``: 'pcr' or 'fastdiag' (see the module);
     None where 'fastdiag' does not apply (lk != K, or fewer than two inner
     rows), as in the JAX package; an empty block raises.  ``plain`` runs
-    the twin on any device.  A 'fastdiag' sweep owns its Thomas scratch,
-    one set per device."""
+    the twin on any device."""
     if solver not in FORMS:
         raise ValueError(f"solver must be one of {FORMS}, not {solver!r}")
     if dtype not in _SUFFIX:
@@ -411,20 +494,13 @@ def make_block_pcr(block_shape, gshape, dtype=torch.float32, *, omega: float,
         raise ValueError("maf=True needs the MafCoeffs (mc)")
     if solver == "fastdiag" and (lk != gshape[0] or lk - 2 < 2):
         return None
-    scratch = {}
 
     def sweep(x, b, origin, tab=None, out=None):
         geom = (*origin, *gshape, offset)
         b = None if b_is_zero else b
         if plain or not x.is_cuda:
             return block_pcr_plain(x, b, solver, color, omega, geom, tab, out)
-        scr = None
-        if solver == "fastdiag":
-            if x.device not in scratch:
-                scratch[x.device] = make_scratch(x.shape, x.dtype, x.device,
-                                                 solver, color, maf)
-            scr = scratch[x.device]
-        return block_pcr(x, b, solver, color, omega, geom, tab, out, scr)
+        return block_pcr(x, b, solver, color, omega, geom, tab, out)
 
     def block_tables(origin, device):
         return block_maf_tables(mc, origin, block_shape, gshape, dtype,

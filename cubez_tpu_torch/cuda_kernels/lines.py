@@ -34,7 +34,7 @@ For a CPU tensor each runs its plain twin, ``line_j_plain`` /
 ``line_rb_plain``, which does the kernels' arithmetic vectorised over the
 lines: bitwise equal to them in float32 and float64.
 
-Arithmetic contract (``csrc/lines.cuh`` states it for the kernels): no
+Arithmetic contract (``csrc/line_tile.cuh`` states it for the kernels): no
 fused multiply-add; every operation rounds once, in this order.
 
 * constant coefficients, R6 = 1/6 in the field dtype, Thomas factors

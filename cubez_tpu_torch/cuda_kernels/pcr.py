@@ -56,7 +56,7 @@ import functools
 import numpy as np
 import torch
 
-from ..ops.pcr import num_stage, pcr_reduce_var
+from ..ops.pcr import _tail, num_stage, pcr_reduce_var
 from ..ops.shifts import shift
 from . import _build
 from .rbpack import _NP, _R6, _SUFFIX, maf_tables, ptr, stream, table_views
@@ -112,6 +112,30 @@ def build_tables(n: int, dtype=torch.float32) -> np.ndarray:
 
     rows += [padn(c_lo), padn(a_hi), padn(jj)]
     return np.asarray(rows, dtype=_NP.get(dtype, dtype))
+
+
+def var_tables(a, c, pn: int) -> torch.Tensor:
+    """The tables of ``build_tables``' layout for the coefficients a, c (n
+    values each, the line's system), evolved by ``pcr_solve_var``'s own
+    operations in their order and type: ``pcr_solve(d, var_tables(a, c,
+    pn), pn)`` is then bitwise ``pcr_solve_var(a, c, d, pn)`` for every
+    column of d (n, ...) (``build_tables`` evolves in float64 and rounds
+    once, which is not)."""
+    n = a.shape[0]
+    rows = []
+    for p in range(1, pn):
+        s = 2 ** (p - 1)
+        al, cl = shift(a, 0, -s), shift(c, 0, -s)
+        ar, cr = shift(a, 0, +s), shift(c, 0, +s)
+        e = 1.0 / (1.0 - a * cl - c * ar)
+        rows += [a, c, e]
+        a, c = -e * a * al, -e * c * cr
+    s = 2 ** (pn - 1)
+    a_hi = _tail(a, s)
+    c_lo = c[:s]
+    jj = 1.0 / (1.0 - a_hi * c_lo)
+    rows += [torch.cat([v, v.new_zeros(n - s)]) for v in (c_lo, a_hi, jj)]
+    return torch.stack(rows).contiguous()
 
 
 @functools.lru_cache(maxsize=None)

@@ -181,9 +181,7 @@ def _make_line_step(problem: Problem, cmesh: CubeMesh, kind: str, omega: float,
                     b_is_zero: bool, plain: bool):
     """The line kinds on K9.  Only face ghosts are refreshed; K9 reads no
     edge ghost into an update: ghost rows are identity rows and ghost
-    columns are never lines.  The 'fastdiag' form's Thomas scratch (one
-    set a CUDA block, shared by both colours) and the MAF tables are made
-    here, once."""
+    columns are never lines.  The MAF tables are made here, once."""
     g = problem.grid
     gshape = g.shape_kij
     bs = cmesh.block_shape(gshape)
@@ -196,19 +194,12 @@ def _make_line_step(problem: Problem, cmesh: CubeMesh, kind: str, omega: float,
     if mc is not None:
         tabs = [dist_pcr.block_maf_tables(mc, o, bs, gshape, g.dtype, form).to(d)
                 for o, d in zip(origins, cmesh.devices)]
-    scratch = None
-    if form == "fastdiag" and not plain:
-        shape = dist_sweeps.block_layout(bs)
-        scratch = [dist_pcr.make_scratch(shape, g.dtype, d, form,
-                                         0 if kind == "pcr_rb" else None,
-                                         mc is not None)
-                   if d.type == "cuda" else None for d in cmesh.devices]
     exchange = FaceExchange(cmesh, plain)
     mesh = _Mesh(cmesh, plain)
     colours = (0, 1) if kind == "pcr_rb" else (None,)
     passes = [mesh.launchers(lambda idx, c=c: dist_pcr.BlockPcr(
-        form, c, omega, _pick(origins, idx), gshape, 0, _pick(tabs, idx),
-        _pick(scratch, idx))) for c in colours]
+        form, c, omega, _pick(origins, idx), gshape, 0, _pick(tabs, idx)))
+        for c in colours]
 
     if kind == "pcr":
 

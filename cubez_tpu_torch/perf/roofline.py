@@ -13,11 +13,10 @@ The line kinds depart from the JAX package, whose count is a dense T^-1
 matmul on the TPU's MXU (2 Kp flops a point, doubled for MAF).  The port's
 kernels do no such product; the count is what they do:
 
-* Thomas (``thomas_flops_per_pt``): K5 (rblines.cu) and K6 (lines.cu) run
-  lines.cuh's ``relax_line`` arithmetic on line_tile.cuh's shared-memory
-  tile, and K9's 'fastdiag' form runs ``relax_line`` itself: the serial
-  line solvers pcr_rb, pcr_rb_esa, pcr_j_esa and their MAF forms, and the
-  distributed ones on K-unsplit meshes.
+* Thomas (``thomas_flops_per_pt``): K5 (rblines.cu), K6 (lines.cu) and
+  K9's 'fastdiag' form (dist_pcr.cu) run line_tile.cuh's shared-memory
+  Thomas tile: the serial line solvers pcr_rb, pcr_rb_esa, pcr_j_esa and
+  their MAF forms, and the distributed ones on K-unsplit meshes.
 * PCR (``pcr_flops_per_pt``, the reference's count): P2 (pcr_gs.cu, the
   exact serial pcr, pcr_eda, pcr_esa), K9's 'pcr' form and K10
   (pcr_warp.cuh, pcr.cuh), and parallel/dist.py's block lines
@@ -58,8 +57,8 @@ def pcr_flops_per_pt(n: int) -> float:
 
 
 def thomas_flops_per_pt(n: int, maf: bool = False, has_b: bool = True) -> float:
-    """Operations a point of lines.cuh's ``relax_line`` (n inner rows a
-    line).  Constant coefficients: the right-hand side 3 adds and a
+    """Operations a point of line_tile.cuh's Thomas relaxation (n inner
+    rows a line).  Constant coefficients: the right-hand side 3 adds and a
     multiply (a subtract more with b), the forward step 3, the backward
     step 2, the relaxation 3 (dp = (s - x) omega, x + dp), dp^2 into the
     sum 2: 14; a line's two Dirichlet folds 4 more.  MAF: the right-hand

@@ -787,19 +787,34 @@ def test_k10_step_one_launch_a_call(dev, shape, kind, maf, dtype):
     assert torch.equal(again, r_first)
 
 
+# (block shape, global shape, origin) of K9's blocks by form: the 'pcr'
+# form's line at each K-wall pattern (top, bottom, both, neither), lines of
+# 258 rows and an odd lj; the 'fastdiag' form's, an odd lj and K = 256; the
+# first of each form with faces on the physical boundary
+K9_BLOCKS = {
+    "pcr": [((10, 12, 14), (20, 24, 28), (10, 0, 14)),
+            ((10, 12, 14), (30, 24, 28), (0, 12, 0)),
+            ((10, 12, 15), (10, 24, 30), (0, 12, 15)),
+            ((10, 12, 14), (30, 24, 28), (10, 6, 7)),
+            ((256, 6, 9), (512, 12, 18), (256, 6, 0))],
+    "fastdiag": [((20, 12, 14), (20, 24, 28), (0, 12, 0)),
+                 ((20, 12, 13), (20, 24, 26), (0, 0, 13)),
+                 ((256, 6, 9), (256, 12, 18), (0, 6, 9))],
+}
+K9_CASES = [(form, c) for form in K9_BLOCKS for c in range(len(K9_BLOCKS[form]))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("with_b", [False, True])
 @pytest.mark.parametrize("maf", [False, True])
 @pytest.mark.parametrize("color", [0, 1, None])
-@pytest.mark.parametrize("form", ["pcr", "fastdiag"])
-def test_k9_matches_plain_twin(dev, form, color, maf, with_b, dtype):
-    """K9 against its twin on a ghosted block at a nonzero origin whose
-    faces hold the physical boundary: float32 bitwise, float64 within
-    1e-14, residuals to rtol 1e-5."""
+@pytest.mark.parametrize("form,case", K9_CASES)
+def test_k9_matches_plain_twin(dev, form, case, color, maf, with_b, dtype):
+    """K9 against its twin on a ghosted block (``K9_BLOCKS``): float32
+    bitwise, float64 within 1e-14, residuals to rtol 1e-5."""
     from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
 
-    bs, gs, origin = {"pcr": ((10, 12, 14), (20, 24, 28), (10, 0, 14)),
-                      "fastdiag": ((20, 12, 14), (20, 24, 28), (0, 12, 0))}[form]
+    bs, gs, origin = K9_BLOCKS[form][case]
     mc = None
     if maf:
         K, I, J = gs
@@ -824,6 +839,74 @@ def test_k9_matches_plain_twin(dev, form, color, maf, with_b, dtype):
     assert torch.equal(x, keep)
     assert float((xk - xp).abs().max()) <= (0.0 if dtype == torch.float32 else 1e-14)
     torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+
+
+def _k9_block(dev, form, maf, dtype, seed):
+    """(build, tab, x, b, origin) of K9's first block of ``form``:
+    ``build(color, plain=False)`` makes its sweep."""
+    from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
+
+    bs, gs, origin = K9_BLOCKS[form][0]
+    mc = None
+    if maf:
+        K, I, J = gs
+        mc = czt.Problem.manufactured_stretched((I, J, K), dtype=dtype,
+                                                device=dev)[0].mc
+
+    def build(color, plain=False):
+        return k9.make_block_pcr(bs, gs, dtype, omega=OMEGA, color=color, offset=1,
+                                 maf=maf, mc=mc, solver=form, plain=plain)
+
+    tab = build(0).block_tables(origin, dev) if maf else None
+    gen = torch.Generator().manual_seed(seed)
+    shape = tuple(s + 2 for s in bs)
+    x = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    b = (torch.rand(shape, generator=gen, dtype=dtype) * 2 - 1).to(dev)
+    return build, tab, x, b, origin
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("color", [0, 1, None])
+@pytest.mark.parametrize("form", ["pcr", "fastdiag"])
+def test_k9_reads_no_edge_ghost(dev, form, color, maf, dtype):
+    """Only face ghosts are refreshed, so K9 must read no edge or corner
+    ghost into an update: with those poisoned by NaN, every owned value
+    stays finite and equals the twin's, the residual is finite, and the
+    line-Jacobi pass copies the poison through unchanged."""
+    build, tab, x, b, origin = _k9_block(dev, form, maf, dtype, 29)
+    ghost = [torch.zeros(n, dtype=torch.bool, device=dev) for n in x.shape]
+    for g in ghost:
+        g[0] = g[-1] = True
+    nghost = (ghost[0][:, None, None].int() + ghost[1][None, :, None].int()
+              + ghost[2][None, None, :].int())
+    edges = nghost >= 2
+    x[edges] = float("nan")
+    keep = x.clone()
+    xk, rk = build(color)(x if color is None else x.clone(), b, origin, tab)
+    xp, rp = build(color, plain=True)(keep.clone(), b, origin, tab)
+    torch.cuda.synchronize()
+    owned = xk[1:-1, 1:-1, 1:-1]
+    assert bool(torch.isfinite(owned).all()) and bool(torch.isfinite(rk))
+    tol = 0.0 if dtype == torch.float32 else 1e-14
+    torch.testing.assert_close(xk, xp, rtol=0, atol=tol, equal_nan=True)
+    assert bool(torch.isnan(xk[edges]).all())
+    torch.testing.assert_close(rk, rp, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("maf", [False, True])
+@pytest.mark.parametrize("color", [0, None])
+@pytest.mark.parametrize("form", ["pcr", "fastdiag"])
+def test_k9_residual_repeats_bit_for_bit(dev, form, color, maf, dtype):
+    """The partials fold in a fixed order: the same call twice gives the
+    same field and the same residual, bit for bit."""
+    build, tab, x, b, origin = _k9_block(dev, form, maf, dtype, 37)
+    sweep = build(color)
+    x1, r1 = sweep(x.clone(), b, origin, tab)
+    x2, r2 = sweep(x.clone(), b, origin, tab)
+    torch.cuda.synchronize()
+    assert torch.equal(x1, x2) and torch.equal(r1, r2)
 
 
 @pytest.mark.parametrize("solver,div,form", [

@@ -136,16 +136,17 @@ def test_partials_count_the_tiles(kind, shape, maf):
 
 
 def test_host_constants_match_the_kernel_source():
-    """The host's bound on a tile's threads is line_tile.cuh's, K5 and K6
-    include the tile, and K9 'fastdiag' alone still calls relax_line."""
+    """The host's bound on a tile's threads is line_tile.cuh's; K5, K6 and
+    K9 (its 'fastdiag' form) include the tile and call relax_tile, and the
+    one-thread Thomas (lines.cuh's relax_line) is gone."""
     tile = (CSRC / "line_tile.cuh").read_text()
     m = re.search(r"constexpr int kTileMaxThreads = (\d+);", tile)
     assert m and int(m.group(1)) == k6.TILE_MAX_THREADS
-    for src in ("lines.cu", "rblines.cu"):
+    for src in ("lines.cu", "rblines.cu", "dist_pcr.cu"):
         text = (CSRC / src).read_text()
-        assert '#include "line_tile.cuh"' in text and "relax_line<" not in text
-    pcr9 = (CSRC / "dist_pcr.cu").read_text()
-    assert "relax_line<" in pcr9 and "line_tile.cuh" not in pcr9
+        assert '#include "line_tile.cuh"' in text and "relax_tile<" in text
+        assert "relax_line" not in text and "lines.cuh" not in text
+    assert not (CSRC / "lines.cuh").exists()
 
 
 @pytest.mark.parametrize("fn,gone", [

@@ -106,8 +106,9 @@ class _CountArith(TorchDispatchMode):
 @pytest.mark.parametrize("has_b", [False, True])
 def test_thomas_count_is_the_twins_arithmetic(maf, has_b):
     """``thomas_flops_per_pt`` is the operation count of the line-Jacobi
-    twin (cuda_kernels/lines.py::line_j_plain, every operation of K5's and
-    K6's relax_line, which the kernels match bit for bit), counted op by op
+    twin (cuda_kernels/lines.py::line_j_plain, every operation of the
+    Thomas tile of K5, K6 and K9 'fastdiag', which the kernels match bit
+    for bit), counted op by op
     over its inner line points."""
     K, I, J = 12, 7, 9
     rng = np.random.default_rng(SEED)
