@@ -22,6 +22,11 @@ p), step = the iterations; utils/sph.py).  ``--profile`` writes
 (its sweep and the driver's overhead; on a mesh the halo exchange, the
 residual fold and the block sweep), plus ``solve_total``, the solve's
 wall; %SoL is taken against the card's entry in perf/pmlib.py's table.
+It then runs the solve once more under torch.profiler with its spans
+recorded (perf/spans.py) and writes ``profile_trace.json`` (the chrome
+trace) and ``spans.txt`` (per span: calls, total and self ms; the host
+syncs, the device's idle across them, host µs a launch, sweeps an
+iteration).
 For pbicgstab, cg, mg, fmg and fd, which are no sweep, it profiles
 ``sor2sma`` on the same problem, as the JAX package's CLI does.
 """
@@ -70,6 +75,27 @@ def build_argparser():
     ap.add_argument("--dump", default=None, metavar="FILE.sph",
                     help="write the solution field as an SPH scalar file")
     return ap
+
+
+def trace_solve(run, device):
+    """One more solve, ``run()``, under torch.profiler (the host, and the
+    card on CUDA) inside ``spans.recording()``: writes
+    ``profile_trace.json``, the chrome trace with the program's spans
+    (perf/spans.py) on the device's clock, and ``spans.txt``, the solve's
+    spans and counters (``spans.report``)."""
+    from .perf import spans
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with spans.recording(), torch.profiler.profile(activities=acts) as prof:
+        run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    prof.export_chrome_trace("profile_trace.json")
+    with open("spans.txt", "w") as f:
+        f.write(spans.report(spans.solves()[-1]))
+    print("profile_trace.json and spans.txt written")
 
 
 def main(argv=None):
@@ -159,6 +185,9 @@ def main(argv=None):
         pm.sections["solve_total"].exclusive = False
         pm.write("profiling.txt")
         print("profiling.txt written")
+        trace_solve(functools.partial(
+            run, omega=args.coef, itr_max=args.itr_max, eps=args.eps,
+            precond=precond, impl=args.impl), args.device)
 
     if args.dump:
         from .utils.sph import write_sph

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.maf import MafCoeffs
+from ..perf import spans
 from .grid import Grid
 
 
@@ -39,7 +40,7 @@ class Problem:
         survives ``dataclasses.replace(prob, rhs=...)`` unchanged)."""
         if not self.rhs_inner_zero:
             return False
-        return not bool(torch.any(self.rhs * self.msk))
+        return not spans.wait(bool, torch.any(self.rhs * self.msk))
 
     def msk_is_standard(self) -> bool:
         """True when msk is the standard cube inner mask (1 inside, 0 on the
@@ -50,8 +51,8 @@ class Problem:
             return True
         inner = m[1:-1, 1:-1, 1:-1]
         return (
-            bool(torch.all(inner == 1))
-            and int(torch.count_nonzero(m)) == self.grid.num_inner
+            spans.wait(bool, torch.all(inner == 1))
+            and spans.wait(int, torch.count_nonzero(m)) == self.grid.num_inner
         )
 
     @classmethod

@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import torch
 
 from ..core.problem import Problem
+from ..perf import spans
 from ..solvers.api import _initial_x
 from ..solvers.driver import EPS_DEFAULT, SolveResult, run_iterative
 from ..solvers.steps import DIAGONAL, EXTENSIONS, KRYLOV, labeled, parse_name
@@ -100,7 +101,10 @@ def solve_dist(
 
     ``impl``: 'auto' launches the kernels for CUDA blocks and runs the
     plain twins for CPU blocks; 'plain' runs the twins on any device.
-    ``precond`` is unused by the relaxation solvers."""
+    ``precond`` is unused by the relaxation solvers.
+
+    The solve is recorded as ``solve``'s is (perf/spans.py), its root span
+    on the first block's device, ``cz.route`` over ``dist_route``."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     if sync not in SYNCS:
@@ -108,20 +112,31 @@ def solve_dist(
     kind, is_maf = parse_name(solver)
     g = problem.grid
     cmesh.block_shape(g.shape_kij)  # a grid the mesh does not divide
-    if kind in KRYLOV:
-        if sync not in ("auto", "color"):
-            raise ValueError(
-                f"sync={sync!r}: the Krylov preconditioner exchanges before "
-                "each colour ('color'); the packed path refuses its nonzero b")
-        result = solve_krylov_dist(problem, cmesh, solver, omega, itr_max, eps,
-                                   precond, impl)
-        return _finish(result, history_path)
-    route = dist_route(problem, cmesh, solver, omega, impl, sync)
-    result = run_iterative(route.step, route.x, route.b, g.res_normal, itr_max,
-                           eps, check_every=check_every, pre=route.pre,
-                           post=route.post)
-    return _finish(dataclasses.replace(result, x=route.out(result.x)),
-                   history_path)
+    if kind in KRYLOV and sync not in ("auto", "color"):
+        raise ValueError(
+            f"sync={sync!r}: the Krylov preconditioner exchanges before "
+            "each colour ('color'); the packed path refuses its nonzero b")
+    rec = spans.begin(cmesh.devices[0])
+    iters = None
+    try:
+        if kind in KRYLOV:
+            result = solve_krylov_dist(problem, cmesh, solver, omega, itr_max,
+                                       eps, precond, impl)
+        else:
+            if rec is not None:
+                rec.enter("cz.route")
+            route = dist_route(problem, cmesh, solver, omega, impl, sync)
+            if rec is not None:
+                rec.exit()
+            result = run_iterative(route.step, route.x, route.b, g.res_normal,
+                                   itr_max, eps, check_every=check_every,
+                                   pre=route.pre, post=route.post)
+            result = dataclasses.replace(result, x=route.out(result.x))
+        iters = result.iters
+    finally:
+        if rec is not None:
+            spans.end(rec, iters)
+    return _finish(result, history_path)
 
 
 @dataclasses.dataclass

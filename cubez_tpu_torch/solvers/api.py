@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..core.problem import Problem
+from ..perf import spans
 from . import steps as steps_mod
 from .bicgstab import make_bicgstab
 from .cg import make_cg
@@ -39,7 +40,7 @@ def _initial_x(step, problem: Problem):
     init = getattr(step, "fmg_init", None)
     if init is None:
         return problem.x0
-    if bool(torch.any(problem.x0 * problem.msk)):
+    if spans.wait(bool, torch.any(problem.x0 * problem.msk)):
         raise ValueError(
             "fmg derives its initial interior from the RHS and would "
             "discard this problem's x0 interior; use 'mg' to iterate "
@@ -96,24 +97,47 @@ def solve(
     relaxation solvers ``precond`` is accepted for signature parity and,
     as in the JAX package, unused.  ``check_every``: see run_iterative;
     counts, histories and the returned field do not depend on it (the
-    Krylov loops check every iteration)."""
+    Krylov loops check every iteration).
+
+    The solve is recorded (perf/spans.py) where a profiler records at this
+    entry or it runs inside ``spans.recording()``: the root span
+    ``cz.solve``, and ``cz.route`` over the route's making (the step,
+    ``make_bicgstab``/``make_cg``, the initial iterate)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     kind, _ = steps_mod.parse_name(solver)
     steps_mod.maf_coeffs(problem, solver)  # a _maf name needs MafCoeffs
+    rec = spans.begin(problem.x0.device)
+    iters = None
+    try:
+        result = _solve(problem, solver, kind, omega, itr_max, eps, precond,
+                        impl, check_every, rec)
+        iters = result.iters
+    finally:
+        if rec is not None:
+            spans.end(rec, iters)
+    if history_path:
+        result.write_history(history_path)
+    return result
+
+
+def _solve(problem, solver, kind, omega, itr_max, eps, precond, impl,
+           check_every, rec):
+    """``solve``'s route and run; ``rec`` the solve's Recorder or None."""
     g = problem.grid
+    if rec is not None:
+        rec.enter("cz.route")
     if kind in steps_mod.KRYLOV:
         if kind == "cg":
             run = make_cg(problem, omega, precond, impl)
         else:
             run = make_bicgstab(problem, solver, omega, precond, impl)
-        result = run(problem.x0, problem.rhs, itr_max, eps, g.res_normal)
-    else:
-        step, pre, post = relaxation_route(problem, solver, omega, impl)
-        result = run_iterative(
-            step, _initial_x(step, problem), problem.rhs, g.res_normal,
-            itr_max, eps, check_every=check_every, pre=pre, post=post,
-        )
-    if history_path:
-        result.write_history(history_path)
-    return result
+        if rec is not None:
+            rec.exit()
+        return run(problem.x0, problem.rhs, itr_max, eps, g.res_normal)
+    step, pre, post = relaxation_route(problem, solver, omega, impl)
+    x0 = _initial_x(step, problem)
+    if rec is not None:
+        rec.exit()
+    return run_iterative(step, x0, problem.rhs, g.res_normal, itr_max, eps,
+                         check_every=check_every, pre=pre, post=post)

@@ -43,6 +43,7 @@ import torch
 from ..core.problem import Problem
 from ..ops import blas
 from ..ops import maf as maf_ops
+from ..perf import spans
 from . import steps as steps_mod
 from .driver import SolveResult, fixed_sweeps
 from .fused_cache import relaxation_route
@@ -110,6 +111,33 @@ class VectorOps:
         if self.mc is not None:
             return maf_ops.calc_rk_maf(p, b, self.msk, self.mc, self.pvt)
         return blas.calc_rk(p, b, self.msk)
+
+
+class SpannedOps:
+    """``ops`` with each call inside a span of the recorded solve ``rec``
+    (perf/spans.py): ``cz.precon`` a preconditioner application, ``cz.ax``
+    an operator application (``ax``, and ``rk``'s b - A x), ``cz.blas``
+    every other call; attributes that are no call pass through."""
+
+    SPANS = {"precon": "cz.precon", "ax": "cz.ax", "rk": "cz.ax"}
+
+    def __init__(self, ops: VectorOps, rec):
+        self._ops, self._rec = ops, rec
+
+    def __getattr__(self, name):
+        attr = getattr(self._ops, name)
+        if not callable(attr):
+            return attr
+        span, rec = self.SPANS.get(name, "cz.blas"), self._rec
+
+        def call(*args):
+            rec.enter(span)
+            try:
+                return attr(*args)
+            finally:
+                rec.exit()
+
+        return call
 
 
 def _zeros_like(v):
@@ -195,13 +223,22 @@ def _guard(den, one, absolute=True):
 
 
 def fetch(res, rho):
-    """(res, rho) as Python floats in one device-to-host transfer."""
-    return torch.stack([res, rho.to(torch.float64)]).tolist()
+    """(res, rho) as Python floats in one device-to-host transfer (a
+    ``spans.wait``)."""
+    return spans.wait(torch.Tensor.tolist,
+                      torch.stack([res, rho.to(torch.float64)]))
 
 
 def res_of(ops, r, res_normal: float):
     """The history's float64 residual sqrt(dot1(r) * res_normal)."""
     return torch.sqrt(ops.dot1(r).to(torch.float64) * res_normal)
+
+
+def spanned(ops):
+    """(ops, the recorded solve's Recorder): ``ops`` in a SpannedOps where
+    the solve is recorded (perf/spans.py), else as it is and None."""
+    rec = spans.current
+    return (ops, None) if rec is None else (SpannedOps(ops, rec), rec)
 
 
 def run_bicgstab(ops: VectorOps, x0, b, itr_max: int, eps: float,
@@ -211,8 +248,11 @@ def run_bicgstab(ops: VectorOps, x0, b, itr_max: int, eps: float,
     ItrMax - 1 (cz_Poisson.cpp:373): at most max(itr_max - 1, 1)
     iterations.  A rho breakdown stops before the iteration touches any
     state and reports 0 iterations (cz_Poisson.cpp:379-383), with the
-    history of those that ran."""
+    history of those that ran.  In a recorded solve (perf/spans.py) each
+    iteration is a span ``cz.iter``, its host sync ``cz.fetch``, and the
+    vector operations are spans of their own (``SpannedOps``)."""
     n = max(int(itr_max) - 1, 1)
+    ops, rec = spanned(ops)
     hist = torch.zeros(n, dtype=torch.float64, device=ops.device)
     one = ops.scalar(1.0)
     rho_old, alpha, omega = one, ops.scalar(0.0), one  # cz_Poisson.cpp:368
@@ -221,11 +261,13 @@ def run_bicgstab(ops: VectorOps, x0, b, itr_max: int, eps: float,
     r0 = r
     p = q = None
     rho = ops.dot2(r, r0)
-    rho_h, res, itr, stop = float(rho), math.inf, 0, False
+    rho_h, res, itr, stop = spans.wait(float, rho), math.inf, 0, False
     while itr < n and (itr == 0 or res >= eps):
         if abs(rho_h) < FLT_MIN:
             stop = True
             break
+        if rec is not None:
+            rec.enter("cz.iter")
         if itr == 0:
             p = r
         else:
@@ -243,7 +285,11 @@ def run_bicgstab(ops: VectorOps, x0, b, itr_max: int, eps: float,
         res_t = res_of(ops, r, res_normal)
         hist[itr] = res_t
         rho_old, rho = rho, ops.dot2(r, r0)
+        if rec is not None:
+            rec.enter("cz.fetch")
         res, rho_h = fetch(res_t, rho)
+        if rec is not None:
+            rec.exit(2)
         itr += 1
     return SolveResult(x=x, iters=0 if stop else itr, res=float(res),
                        history=hist[:itr])

@@ -24,9 +24,10 @@ import math
 import torch
 
 from ..core.problem import Problem
+from ..perf import spans
 from . import steps as steps_mod
 from .bicgstab import (FLT_MIN, VectorOps, _guard, fetch, is_identity,
-                       make_precon, res_of)
+                       make_precon, res_of, spanned)
 from .driver import SolveResult
 
 # preconditioners that are symmetric for the constant-coefficient operator
@@ -57,8 +58,9 @@ def run_cg(ops: VectorOps, x0, b, itr_max: int, eps: float,
            res_normal: float) -> SolveResult:
     """The CG loop over ``ops``'s vectors, with bicgstab.run_bicgstab's
     iteration limit, history and breakdown rules (a breakdown leaves x
-    as it is and reports 0 iterations)."""
+    as it is and reports 0 iterations), and its spans."""
     n = max(int(itr_max) - 1, 1)
+    ops, rec = spanned(ops)
     hist = torch.zeros(n, dtype=torch.float64, device=ops.device)
     one = ops.scalar(1.0)
     x = x0
@@ -66,11 +68,13 @@ def run_cg(ops: VectorOps, x0, b, itr_max: int, eps: float,
     z = ops.precon(r)
     p = z
     rho = ops.dot2(r, z)
-    rho_h, res, itr, stop = float(rho), math.inf, 0, False
+    rho_h, res, itr, stop = spans.wait(float, rho), math.inf, 0, False
     while itr < n and (itr == 0 or res >= eps):
         if abs(rho_h) < FLT_MIN:
             stop = True
             break
+        if rec is not None:
+            rec.enter("cz.iter")
         q = ops.neg(ops.ax(p))
         alpha = rho / _guard(ops.dot2(p, q), one)
         x = ops.axpy(x, alpha, p)
@@ -81,7 +85,11 @@ def run_cg(ops: VectorOps, x0, b, itr_max: int, eps: float,
         rho_new = ops.dot2(r, z)
         p = ops.triad(p, z, rho_new / rho)
         rho = rho_new
+        if rec is not None:
+            rec.enter("cz.fetch")
         res, rho_h = fetch(res_t, rho)
+        if rec is not None:
+            rec.exit(2)
         itr += 1
     return SolveResult(x=x, iters=0 if stop else itr, res=float(res),
                        history=hist[:itr])

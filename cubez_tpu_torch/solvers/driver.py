@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 
+from ..perf import spans
 from ..utils.history import write_history
 
 EPS_DEFAULT = 1.0e-5
@@ -54,6 +55,13 @@ def run_iterative(step, x0, b, res_normal: float, itr_max: int,
     update their state in place.  The state may also be a list of tensors
     (the blocks of a distributed solve); the history then lives on the
     first block's device.
+
+    In a recorded solve (perf/spans.py) each chunk is a span ``cz.chunk``
+    (the snapshot copy ``cz.snapshot``, the step calls, the history
+    writes), its stop test ``cz.check``, and the end ``cz.stop`` (the
+    stopping sweep, the replay, the history, ``post``); the sweeps run,
+    the replay's included, are counted, and the host syncs go through
+    ``spans.wait``.
     """
     if itr_max < 1:
         raise ValueError("itr_max must be >= 1")
@@ -74,26 +82,49 @@ def run_iterative(step, x0, b, res_normal: float, itr_max: int,
     thresh = eps * eps / res_normal
     snap = _like(x)
     done = 0
+    rec = spans.current
     while done < total:
+        if rec is not None:
+            rec.enter("cz.chunk")
+            rec.enter("cz.snapshot")
         _copy(snap, x)  # the field at the start of this chunk
+        if rec is not None:
+            rec.exit()
         for c in range(done, done + chunk, ipc):
             x, r2 = step(x, b)
             hist[c:c + ipc] = r2
         done += chunk
-        if bool((hist[done - chunk:done] < thresh).any()):
+        if rec is not None:
+            rec.sweeps += chunk
+            rec.exit()
+            rec.enter("cz.check")
+        stop = (hist[done - chunk:done] < thresh).any()
+        if rec is None:
+            stop = bool(stop)
+        else:
+            stop = rec.wait(bool, stop)
+            rec.exit()
+        if stop:
             break
+    if rec is not None:
+        rec.enter("cz.stop")
     ran = min(done, itr_max)
-    below = torch.nonzero(hist[:ran] < thresh)
-    iters = int(below[0, 0]) + 1 if below.numel() else ran
+    below = spans.wait(torch.nonzero, hist[:ran] < thresh)
+    iters = spans.wait(int, below[0, 0]) + 1 if below.numel() else ran
     if iters < done:
         x = snap
-        for _ in range(iters - (done - chunk)):
+        replay = iters - (done - chunk)
+        if rec is not None:
+            rec.sweeps += replay
+        for _ in range(replay):
             x, _ = single(x, b)
     res_hist = torch.sqrt(hist[:iters] * res_normal)
     if post is not None:
         x = post(x)
-    return SolveResult(x=x, iters=iters, res=float(res_hist[-1]),
-                       history=res_hist)
+    res = spans.wait(float, res_hist[-1])
+    if rec is not None:
+        rec.exit()
+    return SolveResult(x=x, iters=iters, res=res, history=res_hist)
 
 
 def _like(x):
