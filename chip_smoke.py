@@ -169,7 +169,11 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     sor2sma`` (the oracle's 11 +-1); solve_dist over (2, 2, 2) at 128^3
     (K8 with b, the serial count +-1, Error max within a factor 2); K2's
     pair with b
-    per call at 256^3 against its twin; and the wall, device time, device
+    per call at 256^3 against its twin; the operator pass (csrc/blas.cu:
+    A x and b - A x, launched 2 iters + 1 times a pbicgstab solve, iters +
+    1 a cg solve, never under impl 'plain', by pbicgstab_maf or on the
+    mesh) bit for bit against its twin at 256^3 in float64 and float32,
+    A x per call in float64 beside its bound; and the wall, device time, device
     launches and busy share an iteration of the 256^3 and 128^3 solves
     beside the bound of an iteration;
 20. the exact serial orders (slice 6): one sweep of P1 (psor, csrc/psor.cu)
@@ -545,6 +549,7 @@ def main():
     from cubez_tpu_torch import (Grid, Problem, make_mesh, max_error_loc, solve,
                                  solve_dist)
     from cubez_tpu_torch.cuda_kernels import _build, dist_halo
+    from cubez_tpu_torch.cuda_kernels import blas as kax
     from cubez_tpu_torch.cuda_kernels import dist_pcr as k9
     from cubez_tpu_torch.cuda_kernels import dist_rbpack as k7
     from cubez_tpu_torch.cuda_kernels import dist_sweeps as k8
@@ -555,6 +560,7 @@ def main():
     from cubez_tpu_torch.cuda_kernels import sweeps as k4
     from cubez_tpu_torch.cuda_kernels import pcr_gs as kp2
     from cubez_tpu_torch.cuda_kernels import psor as kp1
+    from cubez_tpu_torch.ops import blas as blas_ops
     from cubez_tpu_torch.ops import pcr_gs as gs_ops
     from cubez_tpu_torch.ops import psor_scan
     from cubez_tpu_torch.ops.pcr import num_stage
@@ -596,6 +602,7 @@ def main():
             w.launches = 0
         dist_halo.halo_exchange.launches = dist_halo.fold_partials.launches = 0
         k7.exchange_packed.launches = 0
+        kax.operator_pass.launches = 0
 
     def read_counts():
         out = {}
@@ -630,6 +637,8 @@ def main():
         out["halo_exchange"] = dist_halo.halo_exchange.launches
         out["fold_partials"] = dist_halo.fold_partials.launches
         out["pack_exchange"] = k7.exchange_packed.launches
+        # the Krylov loop's operator pass (csrc/blas.cu), A x and b - A x
+        out["ax_kernel"] = kax.operator_pass.launches
         return out
 
     # the launches of the dist K8/K9 steps: exchange, sweep, fold
@@ -2505,8 +2514,17 @@ def main():
               f"{r.iters} iterations")
         if dtype == f32:
             path_launches["rb_sweeps_n_b"] = c["rb_sweeps_n_b"]
+        # the operator pass: A x twice an iteration, b - A x once for the
+        # start's residual
+        check(c["ax_kernel"] == 2 * r.iters + 1,
+              f"pbicgstab 256^3 {n_ref}: {c['ax_kernel']} operator passes for "
+              f"{r.iters} iterations")
+        if dtype == f64:
+            path_launches["ax_kernel"] = c["ax_kernel"]
         rp, cp, wall_p = krylov(p, "pbicgstab", "sor2sma", impl="plain")
         check(cp["rb_sweeps_n"] == 0, "the plain Krylov solve launched K2")
+        check(cp["ax_kernel"] == 0,
+              f"the plain Krylov solve launched {cp['ax_kernel']} operator passes")
         check(rp.iters == r.iters, f"pbicgstab 256^3 {n_ref}: plain {rp.iters} "
               f"iterations, kernels {r.iters}")
         if dtype == f32:
@@ -2526,8 +2544,9 @@ def main():
               f"{len(ref)}), history rtol {head:.2e} before its last "
               f"{KRYLOV_TAIL} entries, {tail:.2e} in them, res {r.res:e}, "
               f"Error max {err_max(p, r.x):e}, wall "
-              f"{wall:.3f} s, K2 pair-with-b launches {c['rb_sweeps_n_b']}; "
-              f"plain twins {rp.iters} iterations in {wall_p:.3f} s {tag}",
+              f"{wall:.3f} s, K2 pair-with-b launches {c['rb_sweeps_n_b']}, "
+              f"operator passes {c['ax_kernel']}; plain twins {rp.iters} "
+              f"iterations in {wall_p:.3f} s {tag}",
               flush=True)
         del p, r, rp
 
@@ -2541,6 +2560,7 @@ def main():
     head, tail = curve_rtol(r.history, ref)
     check(head <= 3e-3, f"pbicgstab 128^3 f32 history rtol {head}")
     check(c["rb_sweeps_n_b"] == 8 * r.iters, "pbicgstab 128^3: K2 launches")
+    check(c["ax_kernel"] == 2 * r.iters + 1, "pbicgstab 128^3: operator passes")
     e128, it128 = err_max(p, r.x), r.iters
     print(f"pbicgstab sor2sma 128^3 f32: {r.iters} iterations (oracle "
           f"{len(ref)}), history rtol {head:.2e} before its last {KRYLOV_TAIL} "
@@ -2554,6 +2574,8 @@ def main():
     check(c["rb_sweeps_n_maf"] == 8 * r.iters,
           f"pbicgstab_maf 128^3: {c['rb_sweeps_n_maf']} K2-MAF launches")
     krylov_launches["rb_sweeps_n_maf"] = c["rb_sweeps_n_maf"]
+    # the MAF operator stays ops/maf.py's
+    check(c["ax_kernel"] == 0, "pbicgstab_maf 128^3: operator passes")
     print(f"pbicgstab_maf sor2sma_maf 128^3 f32: {r.iters} iterations (oracle "
           f"{len(ref)}), wall {wall:.3f} s, K2-MAF pair-with-b launches "
           f"{c['rb_sweeps_n_maf']} {tag}", flush=True)
@@ -2573,6 +2595,11 @@ def main():
         check(r.res < 1e-5, f"{label}: res {r.res}")
         check(c[variant] == per_apply * applies and cp[variant] == 0,
               f"{label}: {c[variant]} {variant} launches, plain {cp[variant]}")
+        # the operator: b - A x once, A x once (cg) or twice an iteration
+        check(c["ax_kernel"] == (r.iters if solver == "cg" else 2 * r.iters) + 1
+              and cp["ax_kernel"] == 0,
+              f"{label}: {c['ax_kernel']} operator passes, plain "
+              f"{cp['ax_kernel']}")
         check(rp.iters == r.iters and torch.equal(rp.x, r.x)
               and torch.equal(rp.history, r.history),
               f"{label}: kernels {r.iters} iterations, plain {rp.iters}, or "
@@ -2592,6 +2619,8 @@ def main():
         check(abs(r.iters - len(ref)) <= 2 and r.res < 1e-5,
               f"pbicgstab none 64^3 {n_ref}: {r.iters} iterations, oracle "
               f"{len(ref)}")
+        check(c["ax_kernel"] == 2 * r.iters + 1,
+              f"pbicgstab none 64^3 {n_ref}: {c['ax_kernel']} operator passes")
         print(f"pbicgstab none 64^3 {n_ref}: {r.iters} iterations (oracle "
               f"{len(ref)})", flush=True)
 
@@ -2645,6 +2674,8 @@ def main():
     check(cd["block_sweep_colour"] == 2 * 8 * 2 * rd.iters,
           f"dist pbicgstab: {cd['block_sweep_colour']} K8 colour launches for "
           f"{rd.iters} iterations")
+    # the blocks' operator stays BlockOps' padded twin
+    check(cd["ax_kernel"] == 0, f"dist pbicgstab: {cd['ax_kernel']} operator passes")
     check(abs(rd.iters - it128) <= 1,
           f"dist pbicgstab 128^3: {rd.iters} iterations, serial {it128}")
     check(0.5 < ed / e128 < 2.0,
@@ -2680,6 +2711,41 @@ def main():
           f" ms, plain twin {per_call['rb_sweeps_n_b'][1]:.4f} ms {tag}",
           flush=True)
     del pair_k, pair_p, xs_, bs_, xk, xp
+
+    # the Krylov loop's operator pass (csrc/blas.cu) at 256^3, the shape the
+    # Krylov path gives it: A x and b - A x bit for bit against the twin
+    # (ops/blas.py) on the same card fields, float64 and float32, the
+    # standard mask; then A x per call in float64, the Krylov cell's type
+    for dtype in (f64, f32):
+        msk_ = Problem.poisson_cube(256, dtype=dtype, device=dev).msk
+        pa, ba = (torch.rand(sh256, device=dev, generator=dgen, dtype=dtype)
+                  * 2 - 1 for _ in range(2))
+        before = kax.operator_pass.launches
+        for what, got, want in (
+                ("A x", kax.calc_ax(pa, msk_), blas_ops.calc_ax(pa, msk_)),
+                ("b - A x", kax.calc_rk(pa, ba, msk_),
+                 blas_ops.calc_rk(pa, ba, msk_))):
+            check(torch.equal(got, want),
+                  f"operator pass 256^3 {dtype}: {what} differs from the twin's")
+            err["ax_kernel"] = max(err.get("ax_kernel", 0.0),
+                                   float((got - want).abs().max()))
+        check(kax.operator_pass.launches == before + 2,
+              f"operator pass 256^3 {dtype}: "
+              f"{kax.operator_pass.launches - before} launches for 2 calls")
+        if dtype == f64:
+            p1 = events_ms(lambda: blas_ops.calc_ax(pa, msk_), 2)
+            k1 = events_ms(lambda: kax.calc_ax(pa, msk_), 20)
+            k2 = events_ms(lambda: kax.calc_ax(pa, msk_), 20)
+            p2 = events_ms(lambda: blas_ops.calc_ax(pa, msk_), 2)
+            per_call["ax_kernel"] = (min(k1, k2), min(p1, p2))
+            # p and msk read, out written; 13 operations a point
+            work["ax_kernel"] = (3 * 8 * 256**3, 13 * 256**3)
+            print(f"per call at 256^3 f64: operator pass (A x) "
+                  f"{per_call['ax_kernel'][0]:.4f} ms (bound "
+                  f"{bound(*work['ax_kernel'])[0]:.4f}), plain twin "
+                  f"{per_call['ax_kernel'][1]:.4f} ms; A x and b - A x bit "
+                  f"for bit the twin's in f64 and f32 {tag}", flush=True)
+        del msk_, pa, ba
 
     # timing of the three BASELINE-sized solves: wall per solve and per
     # iteration (CUDA events, after a warm-up, over distinct random starts),
@@ -3268,6 +3334,9 @@ def main():
         "psor_diag_maf": (psor_cu, psor_site),
         "pcr_gs_diag": (pcr_gs_cu, pcr_gs_site),
         "pcr_gs_diag_maf": (pcr_gs_cu, pcr_gs_site),
+        # no pallas_call: the JAX package leaves calc_ax and calc_rk to XLA;
+        # the Krylov loop's A x and b - A x (256^3 float64, phase 19)
+        "ax_kernel": ("cubez_tpu_torch/csrc/blas.cu", "cubez_tpu/ops/blas.py:45"),
     }
     for name in meta:
         check(path_launches.get(name, 0) > 0, f"{name}: no path launched it")
@@ -3294,6 +3363,8 @@ def main():
             kernels[-1]["mg_launches"] = mg_launches[name]
         if name == "rb_sweeps_n_b":
             kernels[-1]["shape"] = [256] * 3
+        if name == "ax_kernel":
+            kernels[-1].update({"shape": [256] * 3, "dtype": "float64"})
         if name in work512:
             kernels[-1]["shape"] = [512] * 3 if name.endswith("_tile") else [128] * 3
         if name in per_call_512:

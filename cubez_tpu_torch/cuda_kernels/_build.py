@@ -109,6 +109,8 @@ def _declare(lib):
             ("psor_sweep", [pvp, pi32, f64, vp]),
             ("pcr_gs_max_blocks", [i32, i32, i32, i32, ctypes.POINTER(i32)]),
             ("pcr_gs_sweep", [pvp, pi32, f64, vp]),
+            # blas.cu: (p, b or NULL, msk, out, K, I, J, device, stream)
+            ("calc_ax", [vp, vp, vp, vp, i32, i32, i32, i32, vp]),
         ):
             fn = getattr(lib, f"cz_{name}_{t}")
             fn.argtypes = args

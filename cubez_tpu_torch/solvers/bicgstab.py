@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..core.problem import Problem
+from ..cuda_kernels import blas as cuda_blas
 from ..ops import blas
 from ..ops import maf as maf_ops
 from ..perf import spans
@@ -55,13 +56,16 @@ PRECOND_SWEEPS = 8
 class VectorOps:
     """The Krylov loops' vector operations on (K, I, J) fields, the masked
     forms of ops/blas.py (and ops/maf.py's operator where ``mc``, the
-    MafCoeffs of a ``_maf`` name, is given), and ``precon``.  Subclasses
+    MafCoeffs of a ``_maf`` name, is given; the constant operator through
+    cuda_kernels/blas.py, one kernel pass on the card under ``impl``
+    'auto', the plain twin under 'plain'), and ``precon``.  Subclasses
     change ``_map``, ``_dot``, ``ax`` and ``rk`` only (parallel/krylov.py's
     BlockOps)."""
 
-    def __init__(self, problem: Problem, mc, precon):
+    def __init__(self, problem: Problem, mc, precon, impl: str = "auto"):
         self.msk = problem.msk
         self.mc = mc
+        self.impl = impl
         self.pvt = problem.pvt
         self.dtype = problem.grid.dtype
         self.device = problem.x0.device
@@ -105,12 +109,12 @@ class VectorOps:
     def ax(self, p):
         if self.mc is not None:
             return maf_ops.calc_ax_maf(p, self.msk, self.mc, self.pvt)
-        return blas.calc_ax(p, self.msk)
+        return cuda_blas.calc_ax(p, self.msk, self.impl)
 
     def rk(self, p, b):
         if self.mc is not None:
             return maf_ops.calc_rk_maf(p, b, self.msk, self.mc, self.pvt)
-        return blas.calc_rk(p, b, self.msk)
+        return cuda_blas.calc_rk(p, b, self.msk, self.impl)
 
 
 class SpannedOps:
@@ -299,9 +303,10 @@ def make_bicgstab(problem: Problem, name: str, omega: float, precond,
                   impl: str = "auto"):
     """``solve(x0, b, itr_max, eps, res_normal) -> SolveResult`` on the
     problem's fields; ``name`` 'pbicgstab' or 'pbicgstab_maf' (which takes
-    ``problem.mc`` and ``problem.pvt``)."""
+    ``problem.mc`` and ``problem.pvt``); ``impl`` picks the preconditioner's
+    route and the constant operator's (VectorOps)."""
     ops = VectorOps(problem, steps_mod.maf_coeffs(problem, name),
-                    make_precon(problem, precond, omega, impl))
+                    make_precon(problem, precond, omega, impl), impl)
 
     def solve(x0, b, itr_max, eps, res_normal):
         return run_bicgstab(ops, x0, b, itr_max, eps, res_normal)

@@ -97,9 +97,11 @@ def run_cg(ops: VectorOps, x0, b, itr_max: int, eps: float,
 
 def make_cg(problem: Problem, omega: float, precond, impl: str = "auto"):
     """``solve(x0, b, itr_max, eps, res_normal) -> SolveResult``; the
-    preconditioner is built as bicgstab.make_precon builds it."""
+    preconditioner is built as bicgstab.make_precon builds it, and ``impl``
+    picks its route and the operator's (VectorOps)."""
     check_cg(problem, precond)
-    ops = VectorOps(problem, None, make_precon(problem, precond, omega, impl))
+    ops = VectorOps(problem, None, make_precon(problem, precond, omega, impl),
+                    impl)
 
     def solve(x0, b, itr_max, eps, res_normal):
         return run_cg(ops, x0, b, itr_max, eps, res_normal)
