@@ -26,13 +26,24 @@ entered after it (the first work queued after), or at the next wait where
 one comes first; the device's idle across the solve's syncs is the sum of
 ``elapsed_time`` over those pairs, read at the solve's end from a pool of
 events reused by every solve.  The last wait of a solve has no second
-event and is not counted.
+event and is not counted.  The replay of ``run_iterative``'s stopping
+chunk (the span ``cz.replay``) is timed on the card the same way, by an
+event pair from the same pool around its sweeps.
+
+The solve's spans: ``cz.route`` (solvers/api.py, parallel/api.py: the
+route's making), ``cz.layout`` (``pre`` of the start and the right-hand
+side, and ``post``: the colour pack or the diagonal skew and back),
+``cz.chunk`` with ``cz.snapshot`` inside, ``cz.check``, and ``cz.stop``
+with ``cz.replay`` inside (solvers/driver.py); the Krylov loops'
+``cz.iter``, ``cz.fetch``, ``cz.precon``, ``cz.ax`` and ``cz.blas``
+(solvers/bicgstab.py, solvers/cg.py).
 
 Per solve the recorder keeps aggregates (``SolveRecord``), not the spans:
 per span name its calls, total and self time (total less its child
 spans') and the names of its parents; the waits and their host time; the
 device idle across them; the relaxation sweeps run (``run_iterative``'s
-chunks and replayed singles); and the launches the kernel wrappers counted
+chunks and replayed singles), the replayed ones on their own and their
+device time; and the launches the kernel wrappers counted
 over the solve (``LAUNCH_COUNTERS``).  The last ``KEEP`` solves are kept;
 ``solves()`` lists them, newest last.
 """
@@ -84,8 +95,11 @@ class SpanStats:
 
 @dataclasses.dataclass(frozen=True)
 class SolveRecord:
-    """A finished recorded solve.  ``sync_idle_s`` is None off the card
-    (a wait on the host's own tensors is no device sync)."""
+    """A finished recorded solve.  ``sync_idle_s`` and ``replay_s`` are
+    None off the card (a wait on the host's own tensors is no device
+    sync).  ``replayed`` counts the sweeps of the stop's replay, a part of
+    ``sweeps``; ``replay_s`` is the device time between its event pair, 0
+    where no sweep was replayed."""
     id: int
     iters: int
     wall_ns: int  # the root span
@@ -97,6 +111,8 @@ class SolveRecord:
     sync_pairs: int
     sweeps: int
     launches: int
+    replayed: int
+    replay_s: float | None
 
     def step_self_ns(self) -> int:
         return sum(self.spans[n].self_ns for n in self.steps)
@@ -132,6 +148,8 @@ class Recorder:
         self.syncs = self.wait_ns = self.sweeps = 0
         self.events = 0  # events of the pool recorded by this solve
         self.before, self.after = [], []  # the events of each wait's pair
+        self.replay_from, self.replay_to = [], []  # the replays' event pairs
+        self.replayed = 0
         self.pending = None  # the event of a wait that awaits its pair
         self.launches0 = launch_count()
 
@@ -197,15 +215,32 @@ class Recorder:
         self.wait_ns += time.perf_counter_ns() - t
         return out
 
+    def replay_begin(self, sweeps: int):
+        """Count the ``sweeps`` the stop replays; on the card an event
+        marks the work queued before them."""
+        self.sweeps += sweeps
+        self.replayed += sweeps
+        if self.cuda:
+            self.replay_from.append(self._record())
+
+    def replay_end(self):
+        """On the card an event marks the end of the replay's work."""
+        if self.cuda:
+            self.replay_to.append(self._record())
+
     def finish(self, iters: int, wall_ns: int) -> SolveRecord:
         """The solve's record, its spans closed: the event pairs are read
         here, after the solve's last wait."""
-        idle = None
+        idle = replay = None
         if self.cuda:
             if self.after:
                 self.after[-1].synchronize()
             idle = 1e-3 * sum(map(torch.cuda.Event.elapsed_time,
                                   self.before, self.after))
+            if self.replay_to:
+                self.replay_to[-1].synchronize()
+            replay = 1e-3 * sum(map(torch.cuda.Event.elapsed_time,
+                                    self.replay_from, self.replay_to))
         return SolveRecord(
             id=self.id, iters=iters, wall_ns=wall_ns,
             spans={k: SpanStats(c, t, s, frozenset(p))
@@ -213,7 +248,8 @@ class Recorder:
             steps=tuple(sorted(self.steps)), syncs=self.syncs,
             wait_ns=self.wait_ns, sync_idle_s=idle,
             sync_pairs=len(self.after), sweeps=self.sweeps,
-            launches=launch_count() - self.launches0)
+            launches=launch_count() - self.launches0,
+            replayed=self.replayed, replay_s=replay)
 
 
 def wait(fn, *args):
@@ -287,8 +323,11 @@ def report(r: SolveRecord) -> str:
     per_launch = (f"{r.step_self_ns() * 1e-3 / r.launches:.2f}" if r.launches
                   else "no kernel launches")
     per_iter = f"{r.sweeps / r.iters:.4f}" if r.sweeps and r.iters else "-"
+    replay = ("not measured (no CUDA device)" if r.replay_s is None
+              else f"{r.replay_s * 1e3:.3f}")
     lines += [f"syncs: {r.syncs} (host wait {r.wait_ns * 1e-6:.3f} ms)",
               f"sync idle ms: {idle}",
               f"host us a launch: {per_launch} ({r.launches} launches)",
-              f"sweeps an iteration: {per_iter} ({r.sweeps} sweeps)"]
+              f"sweeps an iteration: {per_iter} ({r.sweeps} sweeps)",
+              f"replayed: {r.replayed} sweeps, device ms {replay}"]
     return "\n".join(lines) + "\n"

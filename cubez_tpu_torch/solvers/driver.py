@@ -56,12 +56,15 @@ def run_iterative(step, x0, b, res_normal: float, itr_max: int,
     (the blocks of a distributed solve); the history then lives on the
     first block's device.
 
-    In a recorded solve (perf/spans.py) each chunk is a span ``cz.chunk``
-    (the snapshot copy ``cz.snapshot``, the step calls, the history
-    writes), its stop test ``cz.check``, and the end ``cz.stop`` (the
-    stopping sweep, the replay, the history, ``post``); the sweeps run,
-    the replay's included, are counted, and the host syncs go through
-    ``spans.wait``.
+    In a recorded solve (perf/spans.py) the layout conversions are spans
+    ``cz.layout`` (``pre`` of x0 and b, and ``post``), each chunk a span
+    ``cz.chunk`` (the snapshot copy ``cz.snapshot``, the step calls, the
+    history writes), its stop test ``cz.check``, and the end ``cz.stop``
+    (the stopping sweep, the replay ``cz.replay``, the history, ``post``);
+    the sweeps run, the replay's included, are counted, the replay's
+    sweeps also on their own and on the card timed by a CUDA event pair
+    (``Recorder.replay_begin``/``replay_end``), and the host syncs go
+    through ``spans.wait``.
     """
     if itr_max < 1:
         raise ValueError("itr_max must be >= 1")
@@ -75,14 +78,19 @@ def run_iterative(step, x0, b, res_normal: float, itr_max: int,
     # never a chunk longer than the whole run
     chunk = min(chunk, -(-itr_max // ipc) * ipc)
     total = -(-itr_max // chunk) * chunk
-    x = x0 if pre is None else pre(x0)
-    b = b if pre is None else pre(b)
+    rec = spans.current
+    x = x0
+    if pre is not None:
+        if rec is not None:
+            rec.enter("cz.layout")
+        x, b = pre(x0), pre(b)
+        if rec is not None:
+            rec.exit()
     hist = torch.zeros(total, dtype=torch.float64, device=first.device)
     # res >= eps  <=>  r2 >= eps^2 / res_normal
     thresh = eps * eps / res_normal
     snap = _like(x)
     done = 0
-    rec = spans.current
     while done < total:
         if rec is not None:
             rec.enter("cz.chunk")
@@ -115,12 +123,20 @@ def run_iterative(step, x0, b, res_normal: float, itr_max: int,
         x = snap
         replay = iters - (done - chunk)
         if rec is not None:
-            rec.sweeps += replay
+            rec.enter("cz.replay")
+            rec.replay_begin(replay)
         for _ in range(replay):
             x, _ = single(x, b)
+        if rec is not None:
+            rec.replay_end()
+            rec.exit()
     res_hist = torch.sqrt(hist[:iters] * res_normal)
     if post is not None:
+        if rec is not None:
+            rec.enter("cz.layout")
         x = post(x)
+        if rec is not None:
+            rec.exit()
     res = spans.wait(float, res_hist[-1])
     if rec is not None:
         rec.exit()
