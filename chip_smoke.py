@@ -155,9 +155,10 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     256^3 in float64 (the oracle's 38 +-1, history to rtol 1e-4 before
     its last KRYLOV_TAIL entries) and float32 (41-45 iterations, Error max
     under KRYLOV_ERR_256), K2's pair with b launched exactly 8 times an
-    iteration and the plain-twin solve's count (float32: field and history
-    bit for bit; float64: history to 1e-4 before the tail, the twin being
-    an ulp off without fma); at 128^3 f32 sor2sma (20
+    iteration, the vector passes (csrc/blas.cu) 5 times, and the plain-twin
+    solve's count (its vector maps and dots on the same passes; float32:
+    field and history bit for bit; float64: history to 1e-4 before the
+    tail, the twin being an ulp off without fma); at 128^3 f32 sor2sma (20
     +-1, rtol 3e-3 before the last KRYLOV_TAIL entries: the f32 oracle's
     serial float32 dots are that far off from its first entry),
     pbicgstab_maf with sor2sma_maf (19 +-1, K2's MAF pair with b), and
@@ -167,7 +168,8 @@ csrc``, and raises (exit code != 0, no result line) on any failure:
     is chaotic near its stop); the stretched grid's "krylov" sign at 24^3
     and 48^3 f64 (h^2 band); the CLI ``64 64 64 pbicgstab 4000 1.1
     sor2sma`` (the oracle's 11 +-1); solve_dist over (2, 2, 2) at 128^3
-    (K8 with b, the serial count +-1, Error max within a factor 2); K2's
+    (K8 with b, the serial count +-1, Error max within a factor 2 of the
+    serial solve's with its dots summed eagerly, as the blocks sum them); K2's
     pair with b
     per call at 256^3 against its twin; the operator pass (csrc/blas.cu:
     A x and b - A x, launched 2 iters + 1 times a pbicgstab solve, iters +
@@ -233,6 +235,7 @@ last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -312,6 +315,15 @@ RBN_EDGES = ((6, 10, 9), (5, 12, 14), (16, 16, 16), (40, 22, 46),
 HBM_BYTES_S = F32_FLOPS_S = None
 # phase 22: the 512^3 sweep time of profile_solve against phase 12's
 TIMER_RTOL = 0.25
+# phase 19: a vector pass's dot against the twin's torch sum, relative to
+# the sum of its terms' magnitudes, by dtype name (the two sum in
+# different orders)
+VEC_DOT_RTOL = {"float64": 1e-13, "float32": 1e-5}
+# the lines of the JAX package's ops/blas.py each vector pass replaces:
+# bicg_1, triad, dot2, dots_t's dot2 (and dot1), update_xr's bicg_2 (and
+# triad, dot1, dot2)
+VEC_SITES = {"bicg_1": 31, "triad": 26, "dot2": 21, "dots_t": 21,
+             "update_xr": 38}
 
 
 def bound(nbytes, flops):
@@ -602,7 +614,9 @@ def main():
             w.launches = 0
         dist_halo.halo_exchange.launches = dist_halo.fold_partials.launches = 0
         k7.exchange_packed.launches = 0
-        kax.operator_pass.launches = 0
+        kax.operator_pass.launches = kax.vector_pass.launches = 0
+        kax.vector_pass.op_launches.update(
+            dict.fromkeys(kax.vector_pass.op_launches, 0))
 
     def read_counts():
         out = {}
@@ -639,6 +653,10 @@ def main():
         out["pack_exchange"] = k7.exchange_packed.launches
         # the Krylov loop's operator pass (csrc/blas.cu), A x and b - A x
         out["ax_kernel"] = kax.operator_pass.launches
+        # its vector passes (maps and dots), in all and pass by pass
+        out["vector_pass"] = kax.vector_pass.launches
+        out.update({f"vec_kernel.{op}": n
+                    for op, n in kax.vector_pass.op_launches.items()})
         return out
 
     # the launches of the dist K8/K9 steps: exchange, sweep, fold
@@ -2464,12 +2482,19 @@ def main():
     stamp(19)
     # a solve with the launch counts zeroed just before and read just after;
     # K2's constant pair with a streamed b is rb_sweeps_n's (rows, const, b)
+    # ``vector``, if given, is the impl of the vector maps and dots
+    # (cuda_kernels/blas.py's ``vector_impl``): a solve under 'plain' with
+    # ``vector='auto'`` runs its preconditioner and operator on their twins
+    # and its vector work on csrc/blas.cu's passes, as 'auto' does; the
+    # passes' dots sum in their own order, so only so is a plain solve the
+    # kernels' bit for bit
     def krylov(p, solver, precond, omega=1.1, impl="auto", eps=1e-5,
-               itr_max=4000):
+               itr_max=4000, vector=None):
         zero_counts()
         t0 = time.perf_counter()
-        r = solve(p, solver, omega=omega, itr_max=itr_max, eps=eps,
-                  precond=precond, impl=impl)
+        with (kax.vector_impl(vector) if vector else contextlib.nullcontext()):
+            r = solve(p, solver, omega=omega, itr_max=itr_max, eps=eps,
+                      precond=precond, impl=impl)
         sync()
         wall = time.perf_counter() - t0
         c = read_counts()
@@ -2521,10 +2546,31 @@ def main():
               f"{r.iters} iterations")
         if dtype == f64:
             path_launches["ax_kernel"] = c["ax_kernel"]
-        rp, cp, wall_p = krylov(p, "pbicgstab", "sor2sma", impl="plain")
+        # the vector passes: bicg_1 (from the second iteration), dot2,
+        # triad, dots_t and update_xr an iteration, the start's dot2
+        check(c["vector_pass"] == 5 * r.iters,
+              f"pbicgstab 256^3 {n_ref}: {c['vector_pass']} vector passes for "
+              f"{r.iters} iterations")
+        want_ops = {"bicg_1": r.iters - 1, "dot2": r.iters + 1,
+                    "triad": r.iters, "dots_t": r.iters, "update_xr": r.iters}
+        check(all(c[f"vec_kernel.{op}"] == n for op, n in want_ops.items()),
+              f"pbicgstab 256^3 {n_ref}: vector passes "
+              f"{ {op: c['vec_kernel.' + op] for op in want_ops} } for "
+              f"{r.iters} iterations")
+        if dtype == f64:
+            for op in want_ops:
+                path_launches[f"vec_kernel.{op}"] = c[f"vec_kernel.{op}"]
+        # float32: the plain solve's vector work on the same passes, to hold
+        # K2's pair bit for bit; float64: all of it on the twins, the
+        # vector passes' dots summing in their own order
+        rp, cp, wall_p = krylov(p, "pbicgstab", "sor2sma", impl="plain",
+                                vector="auto" if dtype == f32 else None)
         check(cp["rb_sweeps_n"] == 0, "the plain Krylov solve launched K2")
         check(cp["ax_kernel"] == 0,
               f"the plain Krylov solve launched {cp['ax_kernel']} operator passes")
+        check(cp["vector_pass"] == (c["vector_pass"] if dtype == f32 else 0),
+              f"the plain Krylov solve {n_ref} launched {cp['vector_pass']} "
+              "vector passes")
         check(rp.iters == r.iters, f"pbicgstab 256^3 {n_ref}: plain {rp.iters} "
               f"iterations, kernels {r.iters}")
         if dtype == f32:
@@ -2536,8 +2582,9 @@ def main():
             print(f"pbicgstab 256^3 f64: the plain solve's history within "
                   f"{head_p:.2e} before its last {KRYLOV_TAIL} entries, "
                   f"{tail_p:.2e} in them", flush=True)
-            # the f64 twin has no fma (an ulp from the kernel a sweep),
-            # which the iterations amplify as they do the oracle's gap
+            # the f64 twin has no fma (an ulp from the kernel a sweep), and
+            # its dots are torch's sums; the iterations amplify both as they
+            # do the oracle's gap
             check(head_p <= 1e-4,
                   f"pbicgstab 256^3 f64: plain history rtol {head_p}")
         print(f"pbicgstab sor2sma 256^3 {n_ref}: {r.iters} iterations (oracle "
@@ -2589,7 +2636,8 @@ def main():
             ("pbicgstab", "pcr_j_esa", OMEGA_L, "line_j", 8),
             ("cg", "jacobi", OMEGA_J, "k4_jacobi", 8 // k4.JACOBI_N)):
         r, c, wall = krylov(p, solver, precond, omega=omega)
-        rp, cp, wall_p = krylov(p, solver, precond, omega=omega, impl="plain")
+        rp, cp, wall_p = krylov(p, solver, precond, omega=omega, impl="plain",
+                                vector="auto")
         applies = r.iters + 1 if solver == "cg" else 2 * r.iters
         label = f"{solver} {precond} 128^3 f32"
         check(r.res < 1e-5, f"{label}: res {r.res}")
@@ -2678,13 +2726,39 @@ def main():
     check(cd["ax_kernel"] == 0, f"dist pbicgstab: {cd['ax_kernel']} operator passes")
     check(abs(rd.iters - it128) <= 1,
           f"dist pbicgstab 128^3: {rd.iters} iterations, serial {it128}")
-    check(0.5 < ed / e128 < 2.0,
-          f"dist pbicgstab 128^3: Error max {ed} vs serial {e128}")
     krylov_launches["block_sweep_colour"] = cd["block_sweep_colour"]
     print(f"solve_dist pbicgstab sor2sma 128^3 f32 over (2, 2, 2): {rd.iters} "
           f"iterations, Error max {ed:e} (serial {e128:e}), wall {wall:.3f} s, "
           f"K8 colour launches {cd['block_sweep_colour']} {tag}", flush=True)
-    del cm, rd
+    # the field's error against the serial solve's in float64 (the mesh's
+    # preconditioner then dist.py's plain step): in float32 it follows where
+    # the last iteration lands under eps (about 950 times the final
+    # residual at 128^3), which the dots' summation order alone moves 2-5
+    # times either way, while in float64 the serial solve on the passes and
+    # the mesh's block sums agree in count, residual and error
+    p64 = Problem.poisson_cube(128, dtype=f64, device=dev)
+    r64, c64, _ = krylov(p64, "pbicgstab", "sor2sma")
+    check(c64["vector_pass"] == 5 * r64.iters,
+          f"pbicgstab 128^3 f64: {c64['vector_pass']} vector passes")
+    zero_counts()
+    rd64 = solve_dist(p64, cm, "pbicgstab", omega=1.1, itr_max=4000,
+                      precond="sor2sma")
+    sync()
+    cd64 = read_counts()
+    e64s, e64d = err_max(p64, r64.x), err_max(p64, rd64.x)
+    check(cd64["vector_pass"] == 0 and cd64["ax_kernel"] == 0,
+          f"dist pbicgstab 128^3 f64: {cd64['vector_pass']} vector passes, "
+          f"{cd64['ax_kernel']} operator passes")
+    check(abs(rd64.iters - r64.iters) <= 1,
+          f"dist pbicgstab 128^3 f64: {rd64.iters} iterations, serial "
+          f"{r64.iters}")
+    check(0.5 < e64d / e64s < 2.0,
+          f"dist pbicgstab 128^3 f64: Error max {e64d} vs serial {e64s}")
+    print(f"solve_dist pbicgstab sor2sma 128^3 f64 over (2, 2, 2): "
+          f"{rd64.iters} iterations (serial {r64.iters}), Error max "
+          f"{e64d:e} (serial {e64s:e}), res {rd64.res:e} (serial "
+          f"{r64.res:e}) {tag}", flush=True)
+    del cm, rd, p64, r64, rd64
 
     # K2's constant pair with a streamed b per call at 256^3 f32, the
     # shape the Krylov path gives it, against its twin on the same inputs
@@ -2746,6 +2820,84 @@ def main():
                   f"{per_call['ax_kernel'][1]:.4f} ms; A x and b - A x bit "
                   f"for bit the twin's in f64 and f32 {tag}", flush=True)
         del msk_, pa, ba
+
+    # the BiCGSTAB loop's vector passes (csrc/blas.cu: vec_kernel, and
+    # fold_kernel after a pass with dots) at 256^3, the Krylov cell's shape,
+    # in float64 and float32 on fields uniform in [-1, 1) boundary shell
+    # included: each map bit for bit the twin's (ops/blas.py) on the same
+    # card fields, each dot within VEC_DOT_RTOL of the twin's torch sum
+    # relative to the sum of its terms' magnitudes, and the same bits in a
+    # second call; then each pass per call in float64, the cell's type,
+    # against its twin, beside its byte bound.  Pass: fields read (the mask
+    # included) and written, operations a point (czbench's count of the
+    # twin), its arguments from the fields f and the scalars a, b, o, its
+    # maps (the rest are dots), and its dots' terms from f and the twin's
+    # results w
+    vec_passes = (
+        ("bicg_1", 5, 4, lambda f, a, b, o: (f[0], f[1], f[2], b, o), 1,
+         lambda f, w: ()),
+        ("triad", 4, 2, lambda f, a, b, o: (f[0], f[1], a), 1,
+         lambda f, w: ()),
+        ("dot2", 3, 2, lambda f, a, b, o: (f[0], f[1]), 0,
+         lambda f, w: (f[0] * f[1],)),
+        ("dots_t", 3, 4, lambda f, a, b, o: (f[0], f[1]), 0,
+         lambda f, w: (f[0] * f[1], f[0] * f[0])),
+        ("update_xr", 9, 10, lambda f, a, b, o: (*f, a, o), 2,
+         lambda f, w: (w[1] * w[1], w[1] * f[5])),
+    )
+    for dtype in (f64, f32):
+        msk_ = Problem.poisson_cube(256, dtype=dtype, device=dev).msk
+        f_ = [torch.rand(sh256, device=dev, generator=dgen, dtype=dtype) * 2 - 1
+              for _ in range(6)]
+        a_, b_, o_ = (torch.tensor(v, dtype=dtype, device=dev)
+                      for v in (0.7310585786300049, -1.2599210498948732,
+                                0.4142135623730951))
+        gaps = {}
+        for op, n_fields, n_ops, make, maps, terms in vec_passes:
+            name = f"vec_kernel.{op}"
+            args = (*make(f_, a_, b_, o_), msk_)
+            kfn, pfn = getattr(kax, op), getattr(blas_ops, op)
+            tup = lambda v: v if isinstance(v, tuple) else (v,)  # noqa: E731
+            before = kax.vector_pass.launches
+            got, again, want = tup(kfn(*args)), tup(kfn(*args)), tup(pfn(*args))
+            sync()
+            check(kax.vector_pass.launches == before + 2,
+                  f"{name} 256^3 {dtype}: "
+                  f"{kax.vector_pass.launches - before} launches for 2 calls")
+            for g, w in zip(got[:maps], want[:maps]):
+                check(torch.equal(g, w),
+                      f"{name} 256^3 {dtype}: a map differs from the twin's")
+            gap = 0.0
+            for g, a2, w, tm in zip(got[maps:], again[maps:], want[maps:],
+                                    terms(f_, want)):
+                check(torch.equal(g, a2),
+                      f"{name} 256^3 {dtype}: a dot differs run to run")
+                scale = float((tm * msk_).abs().sum())
+                gap = max(gap, abs(float(g) - float(w)) / scale)
+            check(gap <= VEC_DOT_RTOL[str(dtype).removeprefix("torch.")],
+                  f"{name} 256^3 {dtype}: a dot {gap:.3e} of its terms' "
+                  "magnitudes from the twin's sum")
+            gaps[op] = gap
+            if dtype == f64:
+                # maps bit for bit: the error is the dots' relative gap
+                err[name] = gap
+                p1 = events_ms(lambda: pfn(*args), 2)
+                k1 = events_ms(lambda: kfn(*args), 20)
+                k2 = events_ms(lambda: kfn(*args), 20)
+                p2 = events_ms(lambda: pfn(*args), 2)
+                per_call[name] = (min(k1, k2), min(p1, p2))
+                work[name] = (n_fields * 8 * 256**3, n_ops * 256**3)
+                print(f"per call at 256^3 f64: {op} pass "
+                      f"{per_call[name][0]:.4f} ms (bound "
+                      f"{bound(*work[name])[0]:.4f}), plain twin "
+                      f"{per_call[name][1]:.4f} ms {tag}", flush=True)
+            del got, again, want
+        print(f"vector passes 256^3 {dtype}: maps bit for bit the twin's, "
+              f"dots the same bits run to run, gap to the twin's sum over "
+              f"the terms' magnitudes "
+              f"{ {op: f'{g:.2e}' for op, g in gaps.items()} } {tag}",
+              flush=True)
+        del msk_, f_
 
     # timing of the three BASELINE-sized solves: wall per solve and per
     # iteration (CUDA events, after a warm-up, over distinct random starts),
@@ -3337,6 +3489,11 @@ def main():
         # no pallas_call: the JAX package leaves calc_ax and calc_rk to XLA;
         # the Krylov loop's A x and b - A x (256^3 float64, phase 19)
         "ax_kernel": ("cubez_tpu_torch/csrc/blas.cu", "cubez_tpu/ops/blas.py:45"),
+        # no pallas_call: XLA fuses the JAX package's vector ops; the
+        # BiCGSTAB loop's vector passes (256^3 float64, phase 19)
+        **{f"vec_kernel.{op}": ("cubez_tpu_torch/csrc/blas.cu",
+                                f"cubez_tpu/ops/blas.py:{line}")
+           for op, line in VEC_SITES.items()},
     }
     for name in meta:
         check(path_launches.get(name, 0) > 0, f"{name}: no path launched it")
@@ -3365,6 +3522,14 @@ def main():
             kernels[-1]["shape"] = [256] * 3
         if name == "ax_kernel":
             kernels[-1].update({"shape": [256] * 3, "dtype": "float64"})
+        if name.startswith("vec_kernel."):
+            # a pass with dots is the pass and fold_kernel's fold of its
+            # partials; the error is its dots' gap to the twin's sum over
+            # the terms' magnitudes (its maps are bit for bit)
+            dots = name.split(".")[1] in ("dot2", "dots_t", "update_xr")
+            kernels[-1].update({
+                "shape": [256] * 3, "dtype": "float64",
+                "kernels": ["vec_kernel"] + ["fold_kernel"] * dots})
         if name in work512:
             kernels[-1]["shape"] = [512] * 3 if name.endswith("_tile") else [128] * 3
         if name in per_call_512:

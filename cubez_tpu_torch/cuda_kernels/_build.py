@@ -58,7 +58,8 @@ def _nvcc() -> str:
 
 
 def _declare(lib):
-    vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    vp, i32, i64, f64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_double)
     pvp, pi32 = ctypes.POINTER(vp), ctypes.POINTER(i32)
     lib.cz_threads_per_block.argtypes = []
     lib.cz_threads_per_block.restype = i32
@@ -109,8 +110,12 @@ def _declare(lib):
             ("psor_sweep", [pvp, pi32, f64, vp]),
             ("pcr_gs_max_blocks", [i32, i32, i32, i32, ctypes.POINTER(i32)]),
             ("pcr_gs_sweep", [pvp, pi32, f64, vp]),
-            # blas.cu: (p, b or NULL, msk, out, K, I, J, device, stream)
+            # blas.cu: (p, b or NULL, msk, out, K, I, J, device, stream);
+            # the vector passes (op, points, device, out) and (op, ptrs,
+            # points, grid, device, stream)
             ("calc_ax", [vp, vp, vp, vp, i32, i32, i32, i32, vp]),
+            ("vec_grid", [i32, i64, i32, ctypes.POINTER(i32)]),
+            ("vec_pass", [i32, pvp, i64, i32, i32, vp]),
         ):
             fn = getattr(lib, f"cz_{name}_{t}")
             fn.argtypes = args

@@ -52,6 +52,25 @@ def bicg_2(z, x, y, a, b, msk):
     return z + (scalar(a, z) * x + scalar(b, z) * y) * msk
 
 
+def axpy(x, a, p, msk):
+    """x + a*p on inner nodes (cg.py's update of x)."""
+    return x + scalar(a, x) * p * msk
+
+
+def dots_t(t, s, msk):
+    """(dot2(t, s), dot1(t)): BiCGSTAB's omega = (t, s) / (t, t)."""
+    return dot2(t, s, msk), dot1(t, msk)
+
+
+def update_xr(x, p_, s_, t_, s, r0, alpha, omega, msk):
+    """The end of a BiCGSTAB iteration: x + alpha*p_ + omega*s_ (bicg_2) and
+    r = -omega*t_ + s (triad) on inner nodes, with dot1(r) and
+    dot2(r, r0): (x, r, dot1(r), dot2(r, r0))."""
+    x = bicg_2(x, p_, s_, alpha, omega, msk)
+    r = triad(t_, s, -omega, msk)
+    return x, r, dot1(r, msk), dot2(r, r0, msk)
+
+
 def calc_ax(p, msk):
     """A x for the constant-coefficient 7-point operator:
     ap = sum(neighbors) - 6 p (blas_calc_ax, cz_blas.f90:579-644), masked."""

@@ -58,10 +58,44 @@ class BlockOps(VectorOps):
             self.pvhs = [pad_zeros(v) for v in cmesh.shard(problem.pvt)]
 
     def _map(self, fn, *vs):
+        """``fn(*blocks, msk block)`` on each block of the vectors ``vs``."""
         return [fn(*bs, m) for *bs, m in zip(*vs, self.mbs)]
 
     def _dot(self, fn, *vs):
+        """The 0-d sum of ``fn``'s per-block partials, folded in block
+        order."""
         return psum_all(self._map(fn, *vs)).to(self.dtype)
+
+    def dot1(self, v):
+        return self._dot(blas.dot1, v)
+
+    def dot2(self, v, w):
+        return self._dot(blas.dot2, v, w)
+
+    def dots_t(self, t, s):
+        return self.dot2(t, s), self.dot1(t)
+
+    def triad(self, x, y, a):
+        return self._map(lambda x, y, m: blas.triad(x, y, a, m), x, y)
+
+    def bicg_1(self, p, r, q, beta, omega):
+        return self._map(lambda p, r, q, m: blas.bicg_1(p, r, q, beta, omega, m),
+                         p, r, q)
+
+    def bicg_2(self, z, x, y, a, b):
+        return self._map(lambda z, x, y, m: blas.bicg_2(z, x, y, a, b, m),
+                         z, x, y)
+
+    def update_xr(self, x, p_, s_, t_, s, r0, alpha, omega):
+        x = self.bicg_2(x, p_, s_, alpha, omega)
+        r = self.triad(t_, s, -omega)
+        return x, r, self.dot1(r), self.dot2(r, r0)
+
+    def axpy(self, x, a, p):
+        return self._map(lambda x, p, m: blas.axpy(x, a, p, m), x, p)
+
+    def neg(self, v):
+        return self._map(lambda v, m: -v, v)
 
     def _padded(self, fn, p, *extra):
         """fn on each block with its ghosts (zeros past the mesh edge), the

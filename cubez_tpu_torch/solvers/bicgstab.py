@@ -56,11 +56,14 @@ PRECOND_SWEEPS = 8
 class VectorOps:
     """The Krylov loops' vector operations on (K, I, J) fields, the masked
     forms of ops/blas.py (and ops/maf.py's operator where ``mc``, the
-    MafCoeffs of a ``_maf`` name, is given; the constant operator through
-    cuda_kernels/blas.py, one kernel pass on the card under ``impl``
-    'auto', the plain twin under 'plain'), and ``precon``.  Subclasses
-    change ``_map``, ``_dot``, ``ax`` and ``rk`` only (parallel/krylov.py's
-    BlockOps)."""
+    MafCoeffs of a ``_maf`` name, is given), and ``precon``.  The constant
+    operator and every vector operation but ``neg`` and ``bicg_2`` go
+    through cuda_kernels/blas.py, which runs a pass of csrc/blas.cu on the
+    card under ``impl`` 'auto' and the plain twin otherwise; ``dots_t`` and
+    ``update_xr`` fuse what BiCGSTAB's iteration does after its second
+    operator application into one pass each on the card.
+    parallel/krylov.py's BlockOps runs the same operations on block lists,
+    each composed of its per-block ``_map`` and ``_dot``."""
 
     def __init__(self, problem: Problem, mc, precon, impl: str = "auto"):
         self.msk = problem.msk
@@ -74,37 +77,37 @@ class VectorOps:
     def scalar(self, v) -> torch.Tensor:
         return torch.tensor(v, dtype=self.dtype, device=self.device)
 
-    def _map(self, fn, *vs):
-        """``fn(*vs, msk)`` elementwise over the vectors ``vs``."""
-        return fn(*vs, self.msk)
-
-    def _dot(self, fn, *vs):
-        """The 0-d field-dtype sum ``fn(*vs, msk)`` over the vectors."""
-        return fn(*vs, self.msk)
-
     def dot1(self, v):
-        return self._dot(blas.dot1, v)
+        return cuda_blas.dot1(v, self.msk, self.impl)
 
     def dot2(self, v, w):
-        return self._dot(blas.dot2, v, w)
+        return cuda_blas.dot2(v, w, self.msk, self.impl)
+
+    def dots_t(self, t, s):
+        """(dot2(t, s), dot1(t))."""
+        return cuda_blas.dots_t(t, s, self.msk, self.impl)
 
     def triad(self, x, y, a):
-        return self._map(lambda x, y, m: blas.triad(x, y, a, m), x, y)
+        return cuda_blas.triad(x, y, a, self.msk, self.impl)
 
     def bicg_1(self, p, r, q, beta, omega):
-        return self._map(lambda p, r, q, m: blas.bicg_1(p, r, q, beta, omega, m),
-                         p, r, q)
+        return cuda_blas.bicg_1(p, r, q, beta, omega, self.msk, self.impl)
 
     def bicg_2(self, z, x, y, a, b):
-        return self._map(lambda z, x, y, m: blas.bicg_2(z, x, y, a, b, m),
-                         z, x, y)
+        return blas.bicg_2(z, x, y, a, b, self.msk)
+
+    def update_xr(self, x, p_, s_, t_, s, r0, alpha, omega):
+        """(x + alpha p_ + omega s_, r = s - omega t_, dot1(r), dot2(r, r0)):
+        BiCGSTAB's iteration end."""
+        return cuda_blas.update_xr(x, p_, s_, t_, s, r0, alpha, omega,
+                                   self.msk, self.impl)
 
     def axpy(self, x, a, p):
         """x + a p on inner nodes (cg.py's update of x)."""
-        return self._map(lambda x, p, m: x + blas.scalar(a, x) * p * m, x, p)
+        return cuda_blas.axpy(x, a, p, self.msk, self.impl)
 
     def neg(self, v):
-        return self._map(lambda v, m: -v, v)
+        return -v
 
     def ax(self, p):
         if self.mc is not None:
@@ -233,9 +236,10 @@ def fetch(res, rho):
                       torch.stack([res, rho.to(torch.float64)]))
 
 
-def res_of(ops, r, res_normal: float):
-    """The history's float64 residual sqrt(dot1(r) * res_normal)."""
-    return torch.sqrt(ops.dot1(r).to(torch.float64) * res_normal)
+def res_of(rr, res_normal: float):
+    """The history's float64 residual sqrt(rr * res_normal) of rr =
+    dot1(r)."""
+    return torch.sqrt(rr.to(torch.float64) * res_normal)
 
 
 def spanned(ops):
@@ -283,12 +287,12 @@ def run_bicgstab(ops: VectorOps, x0, b, itr_max: int, eps: float,
         s = ops.triad(q, r, -alpha)
         s_ = ops.precon(s)
         t_ = ops.ax(s_)
-        omega = ops.dot2(t_, s) / _guard(ops.dot1(t_), one, absolute=False)
-        x = ops.bicg_2(x, p_, s_, alpha, omega)
-        r = ops.triad(t_, s, -omega)
-        res_t = res_of(ops, r, res_normal)
+        ts, tt = ops.dots_t(t_, s)
+        omega = ts / _guard(tt, one, absolute=False)
+        x, r, rr, rho_next = ops.update_xr(x, p_, s_, t_, s, r0, alpha, omega)
+        res_t = res_of(rr, res_normal)
         hist[itr] = res_t
-        rho_old, rho = rho, ops.dot2(r, r0)
+        rho_old, rho = rho, rho_next
         if rec is not None:
             rec.enter("cz.fetch")
         res, rho_h = fetch(res_t, rho)

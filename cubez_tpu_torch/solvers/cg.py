@@ -79,7 +79,7 @@ def run_cg(ops: VectorOps, x0, b, itr_max: int, eps: float,
         alpha = rho / _guard(ops.dot2(p, q), one)
         x = ops.axpy(x, alpha, p)
         r = ops.triad(q, r, -alpha)
-        res_t = res_of(ops, r, res_normal)
+        res_t = res_of(ops.dot1(r), res_normal)
         hist[itr] = res_t
         z = ops.precon(r)
         rho_new = ops.dot2(r, z)

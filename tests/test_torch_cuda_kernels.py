@@ -1363,9 +1363,12 @@ def test_krylov_64_on_kernels_is_bitwise_its_plain_solve(dev, solver, precond,
                                                          omega, counter):
     """A float32 64^3 Krylov solve whose preconditioner runs on the kernels
     gives the plain-twin solve's count, history and field bit for bit (the
-    kernels are bitwise their twins, the BLAS the same torch ops); the
-    preconditioner's kernel is launched, for sor2sma as K2's pair with b,
-    four calls an application and two applications an iteration."""
+    kernels are bitwise their twins; the vector maps and dots run the same
+    passes of csrc/blas.cu on both sides, whose dots sum in another order
+    than the twins' torch sums); the preconditioner's kernel is launched,
+    for sor2sma as K2's pair with b, four calls an application and two
+    applications an iteration."""
+    from cubez_tpu_torch.cuda_kernels import blas as cblas
     from cubez_tpu_torch.cuda_kernels import lines as k6_
     from cubez_tpu_torch.cuda_kernels import rblines as k5_
 
@@ -1377,8 +1380,9 @@ def test_krylov_64_on_kernels_is_bitwise_its_plain_solve(dev, solver, precond,
     rk = czt.solve(p, solver, omega=omega, itr_max=4000, precond=precond)
     torch.cuda.synchronize()
     launches = w.launches - before
-    rp = czt.solve(p, solver, omega=omega, itr_max=4000, precond=precond,
-                   impl="plain")
+    with cblas.vector_impl("auto"):  # the vector work on the same passes
+        rp = czt.solve(p, solver, omega=omega, itr_max=4000, precond=precond,
+                       impl="plain")
     torch.cuda.synchronize()
     assert w.launches - before == launches  # the plain solve launches none
     assert rk.iters == rp.iters and rk.res < 1e-5

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile the Krylov loop's operator on one NVIDIA GPU.
+"""Profile the Krylov loop's operator and vector passes on one NVIDIA GPU.
 
     python3 tools/prof_blas.py [--root DIR] [--calls 50] [--spans]
                                [--host N] [--seed S] [--out DIR]
@@ -15,6 +15,15 @@ Beside them the byte bound: 3 fields (p and msk read, the result written;
 4 with b) at the card's 3.35 TB/s.  It checks that the kernel equals the
 twin bit for bit.  A checkout without the pass (``--root`` at an older
 one) times the twin alone.
+
+The same for each vector pass of the BiCGSTAB loop (bicg_1, dot2, triad,
+dots_t, update_xr, and cg's axpy and dot1) at both shapes, on six fields
+uniform in [-1, 1) on the inner nodes and 0-d scalars on the card: the
+pass against its twin's eager ops, beside its byte bound (the fields it
+reads, the mask included, and writes, over 3.35 TB/s); its maps must equal
+the twin's bit for bit, and the largest relative gap of its dots to the
+twin's sums is printed.  A checkout without the passes times the twins
+alone.
 
 ``--spans``: one traced pbicgstab solve at 256^3 float64 (the sor2sma
 preconditioner at omega 1.1, eps 1e-5, from a uniform [0, 1) interior
@@ -135,6 +144,59 @@ def time_operator(torch, calls, say):
                 row["kernel_roofline_pct"] = 100 * row["bound_ms"] / row["kernel_device_ms"]
             say(json.dumps(row))
             out.append(row)
+    return out
+
+
+# pass: fields read (the mask included) and written, arguments before msk
+# from the fields f and scalars a, b, o, and its maps (the rest are dots)
+VECTOR_PASSES = (
+    ("bicg_1", 5, lambda f, a, b, o: (f[0], f[1], f[2], b, o), 1),
+    ("dot2", 3, lambda f, a, b, o: (f[0], f[1]), 0),
+    ("triad", 4, lambda f, a, b, o: (f[0], f[1], a), 1),
+    ("dots_t", 3, lambda f, a, b, o: (f[0], f[1]), 0),
+    ("update_xr", 9, lambda f, a, b, o: (*f, a, o), 2),
+    ("axpy", 4, lambda f, a, b, o: (f[0], a, f[1]), 1),
+    ("dot1", 2, lambda f, a, b, o: (f[0],), 0),
+)
+
+
+def time_vector(torch, calls, say):
+    import cubez_tpu_torch as czt
+    from cubez_tpu_torch.cuda_kernels import blas as kernel
+    from cubez_tpu_torch.ops import blas as twin
+    if not hasattr(kernel, "vector_pass"):
+        return []
+    out = []
+    for n, dtype in SHAPES:
+        dt = getattr(torch, dtype)
+        msk = czt.Problem.poisson_cube(n, dt, device="cuda").msk
+        gen = torch.Generator(device="cuda").manual_seed(n + 1)
+        f = [(torch.rand((n, n, n), generator=gen, device="cuda", dtype=dt) * 2 - 1)
+             * msk for _ in range(6)]
+        a, b, o = (torch.tensor(v, dtype=dt, device="cuda")
+                   for v in (0.7310585786300049, -1.2599210498948732,
+                             0.4142135623730951))
+        field = f[0].numel() * f[0].element_size()
+        for op, fields, make, maps in VECTOR_PASSES:
+            args = (*make(f, a, b, o), msk)
+            row = {"op": op, "n": n, "dtype": dtype,
+                   "bound_ms": fields * field / BW * 1e3}
+            sides = {"twin": getattr(twin, op), "kernel": getattr(kernel, op)}
+            got, want = ((v if isinstance(v, tuple) else (v,))
+                         for v in (sides["kernel"](*args), sides["twin"](*args)))
+            row["bitwise"] = all(torch.equal(g, w)
+                                 for g, w in zip(got[:maps], want[:maps]))
+            row["dot_rel_gap"] = max((abs(float(g) / float(w) - 1) for g, w in
+                                      zip(got[maps:], want[maps:])), default=None)
+            for side, fn in sides.items():
+                row[f"{side}_ms"] = event_ms(lambda: fn(*args), calls, torch)
+                dev_us, recs = device_per_call(lambda: fn(*args), 10, torch)
+                row[f"{side}_device_ms"] = dev_us * 1e-3
+                row[f"{side}_launches"] = recs
+            row["kernel_roofline_pct"] = 100 * row["bound_ms"] / row["kernel_device_ms"]
+            say(json.dumps(row))
+            out.append(row)
+        del f, msk
     return out
 
 
@@ -300,7 +362,8 @@ def main(argv=None):
         f"{cubez_tpu_torch.__file__}")
     summary = {"package": cubez_tpu_torch.__file__, "card": card,
                "power_limit_w": power_limit(),
-               "operator": time_operator(torch, args.calls, say)}
+               "operator": time_operator(torch, args.calls, say),
+               "vector": time_vector(torch, args.calls, say)}
     if args.spans or args.host:
         start, run = krylov_cell(torch, args.seed)
     if args.spans:
